@@ -21,7 +21,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    scenarios, T=29 nodes, 10 alphas) each kernel against its plain
    PyTorch version on the card, in float64 (the gate: <= 1e-9 relative to
    each output's max |entry|) and float32 (printed), with CUDA-event times
-   of both;
+   of both and each kernel's bound: the larger of the bytes it must move
+   (inputs read once, outputs written once) over the card's memory rate
+   and its dense products' operations over the f32 rate (no single
+   PyTorch call computes any of the three, so there is no library time);
 5. reference: the float64 tick and warm start at B=2 through the kernels
    against the JAX package's fixture (tests/fixtures/torch_port_flagship.npz).
 
@@ -49,6 +52,10 @@ BATCH = 512
 WARM_DEPTH = 30
 PARITY_RTOL = 1e-9     # float64 gate, relative to each output's max |entry|
 TIMING_REPS = 20
+# published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): HBM3
+# bytes/s and float32 FLOP/s outside the tensor cores (the kernels use none)
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 KERNELS = (
     ("node_linearization", "eagle_mpc_tpu_torch/csrc/node.cu",
@@ -62,6 +69,23 @@ KERNELS = (
 
 class SmokeFailure(Exception):
     pass
+
+
+def ptxas_summary(log):
+    """Registers, stack frame and spills of each kernel entry from the
+    build log (nvcc -Xptxas -v), one line per kernel and type."""
+    import re
+
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?)I([fd])E", line)
+        if m:
+            name = f"{m[1]}<{'float' if m[2] == 'f' else 'double'}>"
+        elif name and ("stack frame" in line or "Used" in line):
+            out.append(f"ptxas {name}: {line.split(':')[-1].strip()}")
+            if "Used" in line:
+                name = None
+    return "\n".join(out)
 
 
 def check(cond, msg):
@@ -79,10 +103,10 @@ def say(*args):
 
 def flagship(device, dtype):
     """Controller, plant and offline reference of the bench workload."""
-    from eagle_mpc_tpu_torch.config import load_mpc_params, load_trajectory
+    from eagle_mpc_tpu_torch.config import (load_mpc_params, load_ref,
+                                            load_trajectory)
     from eagle_mpc_tpu_torch.mpc import CarrotMpc
     from eagle_mpc_tpu_torch.sim import AerialSimulator
-    from tools.make_ref import load_ref
 
     missions = os.path.join(ROOT, "missions")
     traj = load_trajectory(f"{ROBOT}/trajectories/{MISSION}.yaml",
@@ -186,12 +210,19 @@ def _time_ms(fn, reps=TIMING_REPS):
 
 
 def kernel_calls(ctrl, params, xs, us, feasible, reg):
-    """(kernel fn, plain fn) per kernel on one solver state; K3 and K2 get
-    their inputs from the plain versions of the stages before them."""
+    """(kernel fn, plain fn, input tensors, dense operations) per kernel on
+    one solver state; K3 and K2 get their inputs from the plain versions of
+    the stages before them. The operations count the dense products each
+    function must do (a floor: the dynamics and cost rows are left out):
+    K1 the nz solves against M's factor, the Gauss-Newton products of the
+    STATE slots' 6 x 6 base blocks and the Euler step's base block times
+    dD; K2 the feedback law, M's Cholesky factor and its two solves per
+    step; K3 the Q terms Fx'VxxFx, Fu'VxxFu and Fu'VxxFx per node."""
     import torch
 
+    from eagle_mpc_tpu_torch.ocp import costs as C
     from eagle_mpc_tpu_torch.ocp import problem as P
-    from eagle_mpc_tpu_torch.ops import node_cuda, riccati_cuda, rollout_cuda
+    from eagle_mpc_tpu_torch.ops import _cuda, node_cuda, riccati_cuda, rollout_cuda
     from eagle_mpc_tpu_torch.solvers import fddp
 
     spec = ctrl.spec
@@ -214,15 +245,38 @@ def kernel_calls(ctrl, params, xs, us, feasible, reg):
                           dtype=xs.dtype)
     keep = (~feasible[:, None]) & (alphas != 1.0)[None, :]
     rargs = (spec, params, xs, us, k, K, fs, alphas, keep)
+    rows = _cuda.pack_params(spec, params, xs.dtype, xs.device)
+    T, A = spec.T, alphas.shape[0]
+    nv, ndx, nu = spec.model.nv, spec.state.ndx, spec.nu
+    nz, n_state = ndx + nu, sum(s.kind == C.STATE for s in spec.slots)
     return {
         "node_linearization": (
             lambda: node_cuda.calc_diff_running(spec, params, xs, us),
-            lambda: node_cuda.calc_diff_running_plain(spec, params, xs, us)),
-        "riccati_backward": (lambda: riccati_cuda.backward(*bargs),
-                             lambda: riccati_cuda.backward_plain(*bargs)),
-        "alpha_rollout": (lambda: rollout_cuda.rollout(*rargs),
-                          lambda: rollout_cuda.rollout_plain(*rargs)),
+            lambda: node_cuda.calc_diff_running_plain(spec, params, xs, us),
+            (xs[:, :T], us) + rows,
+            B * T * (2 * 2 * nv * nv * nz + 2 * 6 * 6 * 6 * n_state
+                     + 2 * 6 * 6 * nz)),
+        "riccati_backward": (
+            lambda: riccati_cuda.backward(*bargs),
+            lambda: riccati_cuda.backward_plain(*bargs), bargs,
+            B * T * (2 * 2 * ndx ** 3 + 2 * ndx * ndx * nu + 2 * ndx * nu * nu
+                     + 2 * nu * ndx * ndx)),
+        "alpha_rollout": (
+            lambda: rollout_cuda.rollout(*rargs),
+            lambda: rollout_cuda.rollout_plain(*rargs),
+            (xs, us, k, K, fs, params.x0, alphas, keep) + rows,
+            B * A * T * (2 * nu * ndx + nv ** 3 // 3 * 2 + 2 * 2 * nv * nv)),
     }
+
+
+def bound_ms(inputs, outputs, flops):
+    """(least time in ms, what sets it): bytes moved (each input read once,
+    each output written once) over the memory rate, or the operations over
+    the f32 rate, whichever is larger."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs + tuple(outputs))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_parity(device, state):
@@ -236,9 +290,12 @@ def phase_parity(device, state):
         # Cholesky implementations can agree to 1e-9 (at 1e-9 they differ
         # by cond(Quu) * eps ~ 1e-9 at these states)
         calls = kernel_calls(ctrl, params, xs, us, feasible, reg=1e-2)
-        for name, (kern, plain) in calls.items():
+        for name, (kern, plain, ins, flops) in calls.items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
+            r = results.setdefault(name, {})
+            if dtype == torch.float32:
+                r["bound_ms"], r["bound_by"] = bound_ms(ins, got, flops)
             if name == "alpha_rollout":
                 # diverged lanes are chaotic and the solver only reads their
                 # flag: they must agree, and the values are compared on the
@@ -254,7 +311,6 @@ def phase_parity(device, state):
             errs = [_err(w, g) for w, g in zip(want, got)]
             abs_err = max(e[0] for e in errs)
             rel_err = max(e[1] for e in errs)
-            r = results.setdefault(name, {})
             if dtype == torch.float64:
                 r["max_abs_err"] = abs_err
                 say(f"parity f64 {name}: max abs {abs_err:.3e}, "
@@ -268,7 +324,8 @@ def phase_parity(device, state):
                 r["ms"] = _time_ms(kern)
                 r["plain_ms"] = _time_ms(plain)
                 say(f"time f32 B={BATCH} {name}: kernel {r['ms']:.3f} ms, "
-                    f"plain {r['plain_ms']:.3f} ms (median of {TIMING_REPS})")
+                    f"plain {r['plain_ms']:.3f} ms (median of {TIMING_REPS}), "
+                    f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
     return results
 
 
@@ -393,6 +450,7 @@ def phase_main(device):
     peak = torch.cuda.max_memory_allocated()
     for n in mods:
         check(launches[n] > before[n], f"{n}: no kernel launch during the ticks")
+    per_tick = {n: (launches[n] - before[n]) / (REPS * TICKS) for n in mods}
 
     med = float(np.median(times))
     costs_h, feas_h = costs.cpu().numpy(), feas.cpu().numpy()
@@ -407,12 +465,13 @@ def phase_main(device):
         f"(chunk times {[round(x, 4) for x in times]} s), warm start "
         f"{warm_s:.3f} s, peak memory {peak / 2**20:.1f} MiB")
     say(f"health: {json.dumps(health)}")
-    say(f"launches during the main path: {json.dumps(launches)}")
+    say(f"launches during the main path: {json.dumps(launches)}; per timed "
+        f"tick: {json.dumps(per_tick)}")
     check(np.all(np.isfinite(costs_h)), "non-finite tick costs")
     check(health["feasible_frac"] >= 0.99, f"feasible fraction {health}")
     check(health["track_err_mean_m"] < 0.16, f"mean tracking error {health}")
     check(health["track_err_max_m"] < 0.35, f"max tracking error {health}")
-    return launches, (t_ms, xb, xs, us)
+    return launches, per_tick, (t_ms, xb, xs, us)
 
 
 def main():
@@ -436,18 +495,23 @@ def main():
     t0 = time.time()
     lib = _cuda.build(verbose=True)
     say(f"kernels built in {time.time() - t0:.1f} s: {lib.name}")
-    say(lib.with_suffix(".log").read_text().strip()[-3000:])
+    say(ptxas_summary(lib.with_suffix(".log").read_text()))
 
-    launches, state = phase_main(device)
+    launches, per_tick, state = phase_main(device)
     stats = phase_parity(device, state)
     phase_reference(device)
-    check("jax" not in sys.modules, "the port imported jax")
+    foreign = sorted(m for m in sys.modules
+                     if m in ("jax", "eagle_mpc_tpu", "tools")
+                     or m.startswith(("jax.", "eagle_mpc_tpu.", "tools.")))
+    check(not foreign, f"the port imported {foreign}")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
+         "launches": launches[name], "launches_per_tick": per_tick[name],
          "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
+         "bound_ms": stats[name]["bound_ms"],
+         "bound_by": stats[name]["bound_by"], "library_ms": None}
         for name, src, rep in KERNELS]}
     say(json.dumps(record))
     say(json.dumps({"ok": True, "device": {

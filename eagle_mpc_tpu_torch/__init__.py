@@ -5,8 +5,9 @@ The layout mirrors the JAX package (``dynamics``, ``ocp``, ``ops``,
 ``(B, T, ...)``. On CUDA tensors the node linearization, the Riccati
 backward pass and the line-search rollout run as hand-written kernels for
 Hopper (``csrc/``); on CPU tensors the same functions run their plain
-PyTorch versions. The YAML front end and the robot model are the JAX
-package's jax-free host modules, imported as they are.
+PyTorch versions. The YAML front end (``config``) and the robot model
+(``dynamics.model``, ``dynamics.urdf``) are the port's own copies; nothing
+here imports the JAX package.
 """
 
 __version__ = "0.1.0"

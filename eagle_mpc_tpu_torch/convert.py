@@ -1,10 +1,12 @@
-"""Carry problem specs and parameters across from the reference package.
+"""Carry robot models, problem specs and parameters across from the
+reference package.
 
-Both converters work on the reference's containers by field name, so this
-module needs neither ``jax`` nor the reference's jax modules: a
-``ProblemParams`` whose leaves are numpy arrays (the reference
-controllers' ``params0`` holds host leaves) converts as it is; device
-arrays convert once passed through ``numpy.asarray``.
+The converters work on the reference's containers by field name, so this
+module imports neither ``jax`` nor the reference package, and what they
+return holds none of the reference's objects: a ``ProblemParams`` whose
+leaves are numpy arrays (the reference controllers' ``params0`` holds host
+leaves) converts as it is; device arrays convert once passed through
+``numpy.asarray``.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .dynamics.model import Frame, RobotModel
 from .ocp import costs as C
 from .ocp import problem as P
 
@@ -34,10 +37,27 @@ def params_from_jax(params, device, dtype) -> P.ProblemParams:
             s_lb=t(glob.s_lb), s_ub=t(glob.s_ub)))
 
 
+def model_from_jax(model) -> RobotModel:
+    """Reference ``RobotModel`` -> this package's, field by field (numpy
+    copies of the arrays, the port's ``Frame``s)."""
+    a = lambda x: np.array(x, dtype=np.float64)
+    return RobotModel(
+        name=model.name, parent=tuple(model.parent),
+        joint_type=tuple(model.joint_type), joint_p=a(model.joint_p),
+        joint_R=a(model.joint_R), joint_axis=a(model.joint_axis),
+        joint_names=tuple(model.joint_names), inertia=a(model.inertia),
+        effort_limit=a(model.effort_limit),
+        velocity_limit=a(model.velocity_limit),
+        lower_limit=a(model.lower_limit), upper_limit=a(model.upper_limit),
+        frames=tuple(Frame(f.name, f.body, a(f.p), a(f.R))
+                     for f in model.frames),
+        gravity=float(model.gravity))
+
+
 def spec_from_jax(spec) -> P.ProblemSpec:
-    """Reference ``ProblemSpec`` -> this package's (same model object)."""
+    """Reference ``ProblemSpec`` -> this package's."""
     return P.ProblemSpec(
-        model=spec.model, nu=spec.nu, tau_f=spec.tau_f,
+        model=model_from_jax(spec.model), nu=spec.nu, tau_f=spec.tau_f,
         slots=tuple(C.CostSlot(*s) for s in spec.slots),
         integrator=spec.integrator, T=spec.T, dt=spec.dt,
         use_squash=spec.use_squash, contacts=tuple(spec.contacts))

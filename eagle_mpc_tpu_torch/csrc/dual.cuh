@@ -1,10 +1,11 @@
 // Forward-mode dual numbers for the node-linearization kernel.
 //
-// Dual<S> carries a value and ONE tangent. The node kernel runs one thread
-// per tangent direction, so each thread evaluates the node function once
-// in Dual<S> along its basis vector and reads one Jacobian column off the
-// tangents. Comparisons and selects act on the value (pv), which matches
-// jnp.where: the derivative is the selected branch's.
+// Dual<S> carries a value and ONE tangent. Where K1 takes a column of a
+// Jacobian by forward mode (a control direction's dtau/ds, the Euler
+// step's base block, a slot's residual block), one thread evaluates the
+// function once in Dual<S> along its basis vector and reads the column off
+// the tangents. Comparisons and selects act on the value (pv), which
+// matches jnp.where: the derivative is the selected branch's.
 #pragma once
 
 #include <cmath>
@@ -73,6 +74,24 @@ __device__ __forceinline__ float vcos(float x) { return cosf(x); }
 __device__ __forceinline__ double vcos(double x) { return cos(x); }
 __device__ __forceinline__ float vatan2(float y, float x) { return atan2f(y, x); }
 __device__ __forceinline__ double vatan2(double y, double x) { return atan2(y, x); }
+
+// sine and cosine of one argument (for a dual, one call of each)
+__device__ __forceinline__ void vsincos(float x, float* s, float* c) {
+  *s = sinf(x);
+  *c = cosf(x);
+}
+__device__ __forceinline__ void vsincos(double x, double* s, double* c) {
+  *s = sin(x);
+  *c = cos(x);
+}
+
+template <class S>
+__device__ __forceinline__ void vsincos(Dual<S> x, Dual<S>* s, Dual<S>* c) {
+  S sv, cv;
+  vsincos(x.v, &sv, &cv);
+  *s = Dual<S>(sv, cv * x.d);
+  *c = Dual<S>(cv, -sv * x.d);
+}
 
 template <class S>
 __device__ __forceinline__ Dual<S> vsqrt(Dual<S> x) {

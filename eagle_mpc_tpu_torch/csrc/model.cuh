@@ -4,12 +4,17 @@
 // rows with their activations.
 //
 // Every function is a template on the scalar S (float or double) and on
-// the value type V (S, or Dual<S> for forward-mode tangents), so the node
-// linearization (K1) and the rollout (K2) run ONE definition of the
-// dynamics. Mirrors eagle_mpc_tpu_torch/{dynamics,ocp} operation for
-// operation. The robot is not compiled in: it arrives in a ModelDesc that
-// the Python wrapper packs once per problem spec (ops/_cuda.py mirrors its
-// layout field for field).
+// the value type V (S, or Dual<S> for forward-mode tangents). Mirrors
+// eagle_mpc_tpu_torch/{dynamics,ocp} operation for operation. The robot is
+// not compiled in: it arrives in a ModelDesc that the Python wrapper packs
+// once per problem spec (ops/_cuda.py mirrors its layout field for field).
+//
+// One node step (squash, dynamics, Euler) and its running cost are defined
+// once, cooperatively: coop_dyn_next at the end of this file, in which a
+// group of threads of one warp splits the step (rollout.cu: 8 threads per
+// alpha lane; node.cu: the node's warp, for its primal). It runs the
+// pieces above it, which the per-thread code (K1's tangents and dual
+// columns, K3's Cholesky) calls too.
 //
 // The larger functions are __noinline__. Fully inlined into the node
 // kernel (255 registers, a 12 KB frame per thread in float64), nvcc 12.8
@@ -38,8 +43,14 @@
 #define EM_EPS2 1e-8
 
 enum { EM_KIND_STATE = 0, EM_KIND_CONTROL = 1 };
+
 enum { EM_ACT_QUAD = 0, EM_ACT_WQUAD = 1, EM_ACT_QBARRIER = 2, EM_ACT_WQBARRIER = 3 };
 enum { EM_REVOLUTE = 0, EM_PRISMATIC = 1 };
+
+// Gauss-Newton structure of a slot: CONTROL residuals are s - ref, the
+// identity on s; every other kind (STATE today; frame slots later) depends
+// on x alone.
+__host__ __device__ __forceinline__ bool slot_on_x(int kind) { return kind != EM_KIND_CONTROL; }
 
 struct ModelDesc {
   double joint_p[EM_MAX_NJ][3];     // joint placement translation in the parent
@@ -115,6 +126,21 @@ __device__ __forceinline__ void quat_mul(const V* a, const V* b, V* o) {
   o[3] = w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2;
 }
 
+// rotation matrix (row-major) of a unit quaternion
+template <class S>
+__device__ __forceinline__ void quat_to_rot(const S* q, S* R) {
+  const S x = q[0], y = q[1], z = q[2], w = q[3];
+  R[0] = S(1) - S(2) * (y * y + z * z);
+  R[1] = S(2) * (x * y - w * z);
+  R[2] = S(2) * (x * z + w * y);
+  R[3] = S(2) * (x * y + w * z);
+  R[4] = S(1) - S(2) * (x * x + z * z);
+  R[5] = S(2) * (y * z - w * x);
+  R[6] = S(2) * (x * z - w * y);
+  R[7] = S(2) * (y * z + w * x);
+  R[8] = S(1) - S(2) * (x * x + y * y);
+}
+
 template <class V>
 __device__ __forceinline__ void quat_normalize(V* q) {
   V n = vsqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
@@ -142,8 +168,10 @@ __device__ __forceinline__ void quat_exp(const V* w, V* q) {
   V t2 = dot3(w, w);
   V t = vsqrt(safe_nonzero<S, V>(t2));
   bool small = pv(t2) < S(EM_EPS2);
-  V sinc_half = small ? S(0.5) - t2 / S(48) : vsin(S(0.5) * t) / t;
-  V cos_half = small ? S(1) - t2 / S(8) : vcos(S(0.5) * t);
+  V sn, cs;
+  vsincos(S(0.5) * t, &sn, &cs);
+  V sinc_half = small ? S(0.5) - t2 / S(48) : sn / t;
+  V cos_half = small ? S(1) - t2 / S(8) : cs;
   q[0] = w[0] * sinc_half; q[1] = w[1] * sinc_half; q[2] = w[2] * sinc_half;
   q[3] = cos_half;
 }
@@ -171,8 +199,10 @@ __device__ __forceinline__ void exp6(const V* xi, V* p, V* q) {
   V t2s = safe_nonzero<S, V>(t2);
   V t = vsqrt(t2s);
   bool small = pv(t2) < S(EM_EPS2);
-  V b = small ? S(0.5) - t2 / S(24) : (S(1) - vcos(t)) / t2s;
-  V c = small ? S(1) / S(6) - t2 / S(120) : (t - vsin(t)) / (t2s * t);
+  V sn, cs;
+  vsincos(t, &sn, &cs);
+  V b = small ? S(0.5) - t2 / S(24) : (S(1) - cs) / t2s;
+  V c = small ? S(1) / S(6) - t2 / S(120) : (t - sn) / (t2s * t);
   V wv[3], wwv[3];
   cross3(w, v, wv);
   cross3(w, wv, wwv);
@@ -190,8 +220,9 @@ __device__ __forceinline__ void log6(const V* p, const V* q, V* xi) {
   V t = vsqrt(t2s);
   bool small = pv(t2) < S(EM_EPS2);
   V half = S(0.5) * t;
-  V d = small ? S(1) / S(12) + t2 / S(720)
-              : (S(1) - half * vcos(half) / vsin(half)) / t2s;
+  V sn, cs;
+  vsincos(half, &sn, &cs);
+  V d = small ? S(1) / S(12) + t2 / S(720) : (S(1) - half * cs / sn) / t2s;
   V wp[3], wwp[3];
   cross3(w, p, wp);
   cross3(w, wp, wwp);
@@ -299,60 +330,62 @@ __device__ __forceinline__ void joint_subspace(const ModelDesc& d, int j, S* Sj)
   for (int i = 0; i < 3; ++i) Sj[off + i] = S(d.joint_axis[j][i]);
 }
 
+// pose (p, R) of body j+1 in its parent at joint position qj
 template <class S, class V>
-__device__ __noinline__ void tree_kinematics(const ModelDesc& d, const V* x, TreeKin<V>& k) {
-  const V* v = x + d.nq;
-  for (int i = 0; i < 6; ++i) k.vel[0][i] = v[i];
-  for (int j = 0; j < d.nj; ++j) {
-    const int b = j + 1;
-    V qj = x[7 + j];
-    if (d.joint_type[j] == EM_REVOLUTE) {
-      // R = jR exp3(axis qj) (Rodrigues, Taylor-guarded), p = jp
-      V w[3];
-      for (int i = 0; i < 3; ++i) w[i] = S(d.joint_axis[j][i]) * qj;
-      V t2 = dot3(w, w);
-      V t2s = safe_nonzero<S, V>(t2);
-      V t = vsqrt(t2s);
-      bool small = pv(t2) < S(EM_EPS2);
-      V a = small ? S(1) - t2 / S(6) : vsin(t) / t;
-      V bb = small ? S(0.5) - t2 / S(24) : (S(1) - vcos(t)) / t2s;
-      V W[9] = {V(S(0)), -w[2], w[1], w[2], V(S(0)), -w[0], -w[1], w[0], V(S(0))};
-      V E[9];
-      for (int r = 0; r < 3; ++r)
-        for (int c = 0; c < 3; ++c) {
-          V w2 = W[3 * r] * W[c] + W[3 * r + 1] * W[3 + c] + W[3 * r + 2] * W[6 + c];
-          E[3 * r + c] = S(r == c ? 1 : 0) + a * W[3 * r + c] + bb * w2;
-        }
-      for (int r = 0; r < 3; ++r)
-        for (int c = 0; c < 3; ++c)
-          k.R[b][3 * r + c] = S(d.joint_R[j][3 * r]) * E[c]
-                              + S(d.joint_R[j][3 * r + 1]) * E[3 + c]
-                              + S(d.joint_R[j][3 * r + 2]) * E[6 + c];
-      for (int i = 0; i < 3; ++i) k.p[b][i] = V(S(d.joint_p[j][i]));
-    } else {
-      // R = jR, p = jp + jR (axis qj)
-      V ax[3], r[3], Rj[9];
-      for (int i = 0; i < 3; ++i) ax[i] = S(d.joint_axis[j][i]) * qj;
-      for (int i = 0; i < 9; ++i) Rj[i] = V(S(d.joint_R[j][i]));
-      mv3(Rj, ax, r);
-      for (int i = 0; i < 3; ++i) k.p[b][i] = S(d.joint_p[j][i]) + r[i];
-      for (int i = 0; i < 9; ++i) k.R[b][i] = Rj[i];
-    }
-    S Sj[6];
-    joint_subspace<S>(d, j, Sj);
-    V vc[6];
-    motion_to_child(k.p[b], k.R[b], k.vel[d.parent[j]], vc);
-    for (int i = 0; i < 6; ++i) k.vel[b][i] = vc[i] + Sj[i] * v[6 + j];
+__device__ __forceinline__ void joint_placement(const ModelDesc& d, int j, V qj, V* p, V* R) {
+  if (d.joint_type[j] == EM_REVOLUTE) {
+    // R = jR exp3(axis qj) (Rodrigues, Taylor-guarded), p = jp
+    V w[3];
+    for (int i = 0; i < 3; ++i) w[i] = S(d.joint_axis[j][i]) * qj;
+    V t2 = dot3(w, w);
+    V t2s = safe_nonzero<S, V>(t2);
+    V t = vsqrt(t2s);
+    bool small = pv(t2) < S(EM_EPS2);
+    V sn, cs;
+    vsincos(t, &sn, &cs);
+    V a = small ? S(1) - t2 / S(6) : sn / t;
+    V bb = small ? S(0.5) - t2 / S(24) : (S(1) - cs) / t2s;
+    V W[9] = {V(S(0)), -w[2], w[1], w[2], V(S(0)), -w[0], -w[1], w[0], V(S(0))};
+    V E[9];
+    for (int r = 0; r < 3; ++r)
+      for (int c = 0; c < 3; ++c) {
+        V w2 = W[3 * r] * W[c] + W[3 * r + 1] * W[3 + c] + W[3 * r + 2] * W[6 + c];
+        E[3 * r + c] = S(r == c ? 1 : 0) + a * W[3 * r + c] + bb * w2;
+      }
+    for (int r = 0; r < 3; ++r)
+      for (int c = 0; c < 3; ++c)
+        R[3 * r + c] = S(d.joint_R[j][3 * r]) * E[c]
+                       + S(d.joint_R[j][3 * r + 1]) * E[3 + c]
+                       + S(d.joint_R[j][3 * r + 2]) * E[6 + c];
+    for (int i = 0; i < 3; ++i) p[i] = V(S(d.joint_p[j][i]));
+  } else {
+    // R = jR, p = jp + jR (axis qj)
+    V ax[3], r[3], Rj[9];
+    for (int i = 0; i < 3; ++i) ax[i] = S(d.joint_axis[j][i]) * qj;
+    for (int i = 0; i < 9; ++i) Rj[i] = V(S(d.joint_R[j][i]));
+    mv3(Rj, ax, r);
+    for (int i = 0; i < 3; ++i) p[i] = S(d.joint_p[j][i]) + r[i];
+    for (int i = 0; i < 9; ++i) R[i] = Rj[i];
   }
 }
 
-// tau = rnea(q, v, a): [base wrench (6, local), joint torques]
+// local spatial velocity of body j+1 from its parent's (placements known)
 template <class S, class V>
-__device__ __noinline__ void rnea(const ModelDesc& d, const V* x, const V* a,
-                     const TreeKin<V>& k, V* tau) {
+__device__ __forceinline__ void body_velocity(const ModelDesc& d, int j, const V* x, TreeKin<V>& k) {
+  const int b = j + 1;
+  S Sj[6];
+  joint_subspace<S>(d, j, Sj);
+  V vc[6];
+  motion_to_child(k.p[b], k.R[b], k.vel[d.parent[j]], vc);
+  for (int i = 0; i < 6; ++i) k.vel[b][i] = vc[i] + Sj[i] * x[d.nq + 6 + j];
+}
+
+// RNEA forward pass: body accelerations (gravity as a base pseudo-
+// acceleration)
+template <class S, class V>
+__device__ __forceinline__ void rnea_forward(const ModelDesc& d, const V* x, const V* a,
+                                             const TreeKin<V>& k, V (*acc)[6]) {
   const V* v = x + d.nq;
-  V acc[EM_MAX_BODIES][6];
-  V force[EM_MAX_BODIES][6];
   V gw[3] = {V(S(0)), V(S(0)), V(S(d.gravity))};
   V g[3];
   quat_rotate_inv<S, V>(x + 3, gw, g);
@@ -367,21 +400,32 @@ __device__ __noinline__ void rnea(const ModelDesc& d, const V* x, const V* a,
     motion_cross(k.vel[b], Svdot, mc);
     for (int i = 0; i < 6; ++i) acc[b][i] = ac[i] + Sj[i] * a[6 + j] + mc[i];
   }
-  for (int b = 0; b <= d.nj; ++b) {
-    V Ia[6], Iv[6], cf[6];
-    for (int r = 0; r < 6; ++r) {
-      V sa = S(d.inertia[b][6 * r]) * acc[b][0];
-      V sv = S(d.inertia[b][6 * r]) * k.vel[b][0];
-      for (int c = 1; c < 6; ++c) {
-        sa = sa + S(d.inertia[b][6 * r + c]) * acc[b][c];
-        sv = sv + S(d.inertia[b][6 * r + c]) * k.vel[b][c];
-      }
-      Ia[r] = sa;
-      Iv[r] = sv;
+}
+
+// net force of body b: I acc + v x* (I v)
+template <class S, class V>
+__device__ __forceinline__ void body_force(const ModelDesc& d, int b, const V* acc,
+                                           const V* vel, V* f) {
+  V Ia[6], Iv[6], cf[6];
+  for (int r = 0; r < 6; ++r) {
+    V sa = S(d.inertia[b][6 * r]) * acc[0];
+    V sv = S(d.inertia[b][6 * r]) * vel[0];
+    for (int c = 1; c < 6; ++c) {
+      sa = sa + S(d.inertia[b][6 * r + c]) * acc[c];
+      sv = sv + S(d.inertia[b][6 * r + c]) * vel[c];
     }
-    motion_cross_force(k.vel[b], Iv, cf);
-    for (int i = 0; i < 6; ++i) force[b][i] = Ia[i] + cf[i];
+    Ia[r] = sa;
+    Iv[r] = sv;
   }
+  motion_cross_force(vel, Iv, cf);
+  for (int i = 0; i < 6; ++i) f[i] = Ia[i] + cf[i];
+}
+
+// RNEA backward pass: joint torques and the base wrench (force is summed
+// into in place)
+template <class S, class V>
+__device__ __forceinline__ void rnea_backward(const ModelDesc& d, const TreeKin<V>& k,
+                                              V (*force)[6], V* tau) {
   for (int j = d.nj - 1; j >= 0; --j) {
     const int b = j + 1;
     S Sj[6];
@@ -397,80 +441,56 @@ __device__ __noinline__ void rnea(const ModelDesc& d, const V* x, const V* a,
   for (int i = 0; i < 6; ++i) tau[i] = force[0][i];
 }
 
-// joint-space mass matrix M (nv x nv, row-major, stride EM_MAX_NV)
+// entry e (row-major) of X = [[R^T, -R^T hat(p)], [0, R^T]], the motion
+// transform from a parent to the child at pose (p, R)
 template <class S, class V>
-__device__ __noinline__ void crba(const ModelDesc& d, const TreeKin<V>& k, V* M) {
-  const int nv = d.nv;
-  V Ic[EM_MAX_BODIES][36];
-  for (int b = 0; b <= d.nj; ++b)
-    for (int i = 0; i < 36; ++i) Ic[b][i] = V(S(d.inertia[b][i]));
-  for (int j = d.nj - 1; j >= 0; --j) {
-    const int b = j + 1;
-    // X = [[R^T, -R^T hat(p)], [0, R^T]] maps parent motion to child
-    V X[36];
-    const V* R = k.R[b];
-    const V* p = k.p[b];
+__device__ __forceinline__ V xform_entry(const V* R, const V* p, int e) {
+  const int r = e / 6, c = e % 6;
+  if (r >= 3 && c < 3) return V(S(0));
+  if (r < 3 && c >= 3) {
+    const int cc = c - 3;
     V hp[9] = {V(S(0)), -p[2], p[1], p[2], V(S(0)), -p[0], -p[1], p[0], V(S(0))};
-    for (int r = 0; r < 3; ++r)
-      for (int c = 0; c < 3; ++c) {
-        V Rt = R[3 * c + r];
-        V Rthp = R[r] * hp[c] + R[3 + r] * hp[3 + c] + R[6 + r] * hp[6 + c];
-        X[6 * r + c] = Rt;
-        X[6 * r + 3 + c] = -Rthp;
-        X[6 * (3 + r) + c] = V(S(0));
-        X[6 * (3 + r) + 3 + c] = Rt;
-      }
-    V IX[36];
-    for (int r = 0; r < 6; ++r)
-      for (int c = 0; c < 6; ++c) {
-        V s = Ic[b][6 * r] * X[c];
-        for (int m = 1; m < 6; ++m) s = s + Ic[b][6 * r + m] * X[6 * m + c];
-        IX[6 * r + c] = s;
-      }
-    const int par = d.parent[j];
-    for (int r = 0; r < 6; ++r)
-      for (int c = 0; c < 6; ++c) {
-        V s = X[r] * IX[c];
-        for (int m = 1; m < 6; ++m) s = s + X[6 * m + r] * IX[6 * m + c];
-        Ic[par][6 * r + c] = Ic[par][6 * r + c] + s;
-      }
+    return -(R[r] * hp[cc] + R[3 + r] * hp[3 + cc] + R[6 + r] * hp[6 + cc]);
   }
-  for (int r = 0; r < nv; ++r)
-    for (int c = 0; c < nv; ++c) M[EM_MAX_NV * r + c] = V(S(0));
-  for (int r = 0; r < 6; ++r)
-    for (int c = 0; c < 6; ++c) M[EM_MAX_NV * r + c] = Ic[0][6 * r + c];
-  for (int j = 0; j < d.nj; ++j) {
-    const int b = j + 1;
-    S Sj[6];
-    joint_subspace<S>(d, j, Sj);
-    V F[6];
-    for (int r = 0; r < 6; ++r) {
-      V s = Ic[b][6 * r] * Sj[0];
-      for (int c = 1; c < 6; ++c) s = s + Ic[b][6 * r + c] * Sj[c];
-      F[r] = s;
+  const int rr = r % 3, c3 = c % 3;
+  return R[3 * c3 + rr];
+}
+
+// row and column 6+j of M from the composite inertias (stride EM_MAX_NV);
+// the entries of different joints are disjoint
+template <class S, class V>
+__device__ __forceinline__ void crba_joint_column(const ModelDesc& d, int j, const TreeKin<V>& k,
+                                                  V (*Ic)[36], V* M) {
+  const int b = j + 1;
+  S Sj[6];
+  joint_subspace<S>(d, j, Sj);
+  V F[6];
+  for (int r = 0; r < 6; ++r) {
+    V s = Ic[b][6 * r] * Sj[0];
+    for (int c = 1; c < 6; ++c) s = s + Ic[b][6 * r + c] * Sj[c];
+    F[r] = s;
+  }
+  V e = Sj[0] * F[0];
+  for (int i = 1; i < 6; ++i) e = e + Sj[i] * F[i];
+  M[EM_MAX_NV * (6 + j) + 6 + j] = e;
+  int body = b;
+  while (body != 0) {
+    V Fp[6];
+    force_to_parent(k.p[body], k.R[body], F, Fp);
+    for (int i = 0; i < 6; ++i) F[i] = Fp[i];
+    body = d.parent[body - 1];
+    if (body != 0) {
+      S Sb[6];
+      joint_subspace<S>(d, body - 1, Sb);
+      V eb = Sb[0] * F[0];
+      for (int i = 1; i < 6; ++i) eb = eb + Sb[i] * F[i];
+      M[EM_MAX_NV * (6 + j) + 6 + body - 1] = eb;
+      M[EM_MAX_NV * (6 + body - 1) + 6 + j] = eb;
     }
-    V e = Sj[0] * F[0];
-    for (int i = 1; i < 6; ++i) e = e + Sj[i] * F[i];
-    M[EM_MAX_NV * (6 + j) + 6 + j] = e;
-    int body = b;
-    while (body != 0) {
-      V Fp[6];
-      force_to_parent(k.p[body], k.R[body], F, Fp);
-      for (int i = 0; i < 6; ++i) F[i] = Fp[i];
-      body = d.parent[body - 1];
-      if (body != 0) {
-        S Sb[6];
-        joint_subspace<S>(d, body - 1, Sb);
-        V eb = Sb[0] * F[0];
-        for (int i = 1; i < 6; ++i) eb = eb + Sb[i] * F[i];
-        M[EM_MAX_NV * (6 + j) + 6 + body - 1] = eb;
-        M[EM_MAX_NV * (6 + body - 1) + 6 + j] = eb;
-      }
-    }
-    for (int c = 0; c < 6; ++c) {
-      M[EM_MAX_NV * (6 + j) + c] = F[c];
-      M[EM_MAX_NV * c + 6 + j] = F[c];
-    }
+  }
+  for (int c = 0; c < 6; ++c) {
+    M[EM_MAX_NV * (6 + j) + c] = F[c];
+    M[EM_MAX_NV * c + 6 + j] = F[c];
   }
 }
 
@@ -506,53 +526,47 @@ __device__ __noinline__ void chol_solve(const V* L, int n, int stride, V* b) {
   }
 }
 
-// a = M(q)^{-1} (tau - b(q, v))
-template <class S, class V>
-__device__ __noinline__ void fwd_dynamics(const ModelDesc& d, const V* x, const V* tau, V* a) {
-  TreeKin<V> k;
-  tree_kinematics<S, V>(d, x, k);
-  V zero[EM_MAX_NV], bias[EM_MAX_NV];
-  for (int i = 0; i < d.nv; ++i) zero[i] = V(S(0));
-  rnea<S, V>(d, x, zero, k, bias);
-  V M[EM_MAX_NV * EM_MAX_NV];
-  crba<S, V>(d, k, M);
-  for (int i = 0; i < d.nv; ++i) a[i] = tau[i] - bias[i];
-  cholesky<S, V>(M, d.nv, EM_MAX_NV);
-  chol_solve(M, d.nv, EM_MAX_NV, a);
-}
-
 // ---------------------------------------------------------------------------
 // the node: squash -> allocation -> free dynamics -> symplectic Euler
 // ---------------------------------------------------------------------------
 
+// plant-facing control i of s (the squash, when the spec has one);
 // gp: global parameter row [smooth, s_lb (nu), s_ub (nu), ...]
 template <class S, class V>
-__device__ __noinline__ void dyn_next(const ModelDesc& d, const V* x, const V* s, const S* gp, V* xn) {
-  const int nu = d.nu, nv = d.nv;
+__device__ __forceinline__ V control_u(const ModelDesc& d, int i, V si, const S* gp) {
+  if (!d.use_squash) return si;
+  const S smooth = gp[0];
+  const S lb = gp[1 + i], ub = gp[1 + d.nu + i];
+  const S dd = smooth * (ub - lb);
+  const S a2 = dd * dd;
+  V slo = si - lb, shi = si - ub;
+  return S(0.5) * (vsqrt(a2 + slo * slo) - vsqrt(a2 + shi * shi) + lb + ub);
+}
+
+// generalized force row r from the plant-facing controls u: the rotor
+// allocation for the base wrench, the joint torques as they are
+template <class S, class V>
+__device__ __forceinline__ V alloc_row(const ModelDesc& d, int r, const V* u) {
+  if (r >= 6) return u[d.n_rot + r - 6];
+  V acc = S(d.tau_f[r * d.n_rot]) * u[0];
+  for (int c = 1; c < d.n_rot; ++c) acc = acc + S(d.tau_f[r * d.n_rot + c]) * u[c];
+  return acc;
+}
+
+// tau(s): squash, then allocation
+template <class S, class V>
+__device__ __noinline__ void control_tau(const ModelDesc& d, const V* s, const S* gp, V* tau) {
   V u[EM_MAX_NU];
-  if (d.use_squash) {
-    const S smooth = gp[0];
-    for (int i = 0; i < nu; ++i) {
-      const S lb = gp[1 + i], ub = gp[1 + nu + i];
-      const S dd = smooth * (ub - lb);
-      const S a2 = dd * dd;
-      V slo = s[i] - lb, shi = s[i] - ub;
-      u[i] = S(0.5) * (vsqrt(a2 + slo * slo) - vsqrt(a2 + shi * shi) + lb + ub);
-    }
-  } else {
-    for (int i = 0; i < nu; ++i) u[i] = s[i];
-  }
-  V tau[EM_MAX_NV];
-  for (int r = 0; r < 6; ++r) {
-    V acc = S(d.tau_f[r * d.n_rot]) * u[0];
-    for (int c = 1; c < d.n_rot; ++c) acc = acc + S(d.tau_f[r * d.n_rot + c]) * u[c];
-    tau[r] = acc;
-  }
-  for (int i = d.n_rot; i < nu; ++i) tau[6 + i - d.n_rot] = u[i];
-  V a[EM_MAX_NV];
-  fwd_dynamics<S, V>(d, x, tau, a);
+  for (int i = 0; i < d.nu; ++i) u[i] = control_u<S, V>(d, i, s[i], gp);
+  for (int r = 0; r < d.nv; ++r) tau[r] = alloc_row<S, V>(d, r, u);
+}
+
+// symplectic Euler: xn = x (+) dx, dx = [(v + a dt) dt, a dt] (ndx scratch)
+template <class S, class V>
+__device__ __noinline__ void euler_next(const ModelDesc& d, const V* x, const V* a, V* xn,
+                                        V* dx) {
+  const int nv = d.nv;
   const S dt = S(d.dt);
-  V dx[EM_MAX_NDX];
   for (int i = 0; i < nv; ++i) {
     dx[i] = (x[d.nq + i] + a[i] * dt) * dt;
     dx[nv + i] = a[i] * dt;
@@ -574,10 +588,40 @@ __device__ __noinline__ void slot_residual(const ModelDesc& d, int k, const V* x
   }
 }
 
-// activation of slot k on residual values r: returns a, fills Ar and Arr
+// one row of an activation at residual value r: returns its share of
+// 2 a and sets A_r, A_rr (barriers: min(r - lb, 0) + max(r - ub, 0),
+// NaN-propagating like jnp)
 template <class S>
-__device__ S activation(const ModelDesc& d, int k, const S* r, const S* gp,
-                        S* Ar, S* Arr) {
+__device__ __forceinline__ S activation_row(int kind, S r, S w, S lb, S ub, S& Ar, S& Arr) {
+  if (kind == EM_ACT_QUAD) {
+    Ar = r;
+    Arr = S(1);
+    return r * r;
+  }
+  if (kind == EM_ACT_WQUAD) {
+    S wr = w * r;
+    Ar = wr;
+    Arr = w;
+    return wr * r;
+  }
+  S lo = r - lb, hi = r - ub;
+  S viol = (lo > S(0) ? S(0) : lo) + (hi < S(0) ? S(0) : hi);
+  S mask = viol != S(0) ? S(1) : S(0);
+  if (kind == EM_ACT_QBARRIER) {
+    Ar = viol;
+    Arr = mask;
+    return viol * viol;
+  }
+  Ar = w * viol;
+  Arr = w * mask;
+  return w * viol * viol;
+}
+
+// activation of slot k on its residual values r: a; with wA / wAA given,
+// also w_k A_r and w_k A_rr per row
+template <class S>
+__device__ __forceinline__ S activation(const ModelDesc& d, int k, const S* r, const S* gp,
+                                        S wk = S(0), S* wA = nullptr, S* wAA = nullptr) {
   const int nr = d.slot_nr[k];
   const int kind = d.slot_act[k];
   const S* w = gp + d.slot_glob_off[k];
@@ -585,45 +629,169 @@ __device__ S activation(const ModelDesc& d, int k, const S* r, const S* gp,
   const S* ub = lb + nr;
   S a = S(0);
   for (int i = 0; i < nr; ++i) {
-    if (kind == EM_ACT_QUAD) {
-      a = a + r[i] * r[i];
-      Ar[i] = r[i];
-      Arr[i] = S(1);
-    } else if (kind == EM_ACT_WQUAD) {
-      S wr = w[i] * r[i];
-      a = a + wr * r[i];
-      Ar[i] = wr;
-      Arr[i] = w[i];
-    } else {
-      // min(r - lb, 0) + max(r - ub, 0), NaN-propagating like jnp
-      S lo = r[i] - lb[i], hi = r[i] - ub[i];
-      S viol = (lo > S(0) ? S(0) : lo) + (hi < S(0) ? S(0) : hi);
-      S mask = viol != S(0) ? S(1) : S(0);
-      if (kind == EM_ACT_QBARRIER) {
-        a = a + viol * viol;
-        Ar[i] = viol;
-        Arr[i] = mask;
-      } else {
-        a = a + w[i] * viol * viol;
-        Ar[i] = w[i] * viol;
-        Arr[i] = w[i] * mask;
-      }
+    S Ar, Arr;
+    a = a + activation_row<S>(kind, r[i], w[i], lb[i], ub[i], Ar, Arr);
+    if (wA) {
+      wA[i] = wk * Ar;
+      wAA[i] = wk * Arr;
     }
   }
   return S(0.5) * a;
 }
 
-// running cost dt * sum_k weight_k active_k a_k at (x, s)
+// weight_k active_k a_k of slot k at (x, s); r: scratch for its residual
 template <class S>
-__device__ S node_cost(const ModelDesc& d, const S* x, const S* s, const S* np,
-                       const S* gp) {
-  const int K = d.n_slots;
-  S total = S(0);
-  for (int k = 0; k < K; ++k) {
-    S r[EM_MAX_NR], Ar[EM_MAX_NR], Arr[EM_MAX_NR];
-    slot_residual<S, S>(d, k, x, s, np, r);
-    S a = activation<S>(d, k, r, gp, Ar, Arr);
-    total = total + np[k] * np[K + k] * a;
+__device__ __noinline__ S slot_cost(const ModelDesc& d, int k, const S* x, const S* s,
+                                    const S* np, const S* gp, S* r) {
+  slot_residual<S, S>(d, k, x, s, np, r);
+  return np[k] * np[d.n_slots + k] * activation<S>(d, k, r, gp);
+}
+
+
+// ---------------------------------------------------------------------------
+// the cooperative node step
+// ---------------------------------------------------------------------------
+//
+// coop_dyn_next is the node step of the plain version (problem.node_calc:
+// squash, CRBA + Cholesky forward dynamics, symplectic Euler, the running
+// cost) split over a group of G threads of one warp, with its working set
+// in shared memory (CoopNode). rollout.cu runs it per alpha lane (G = 8);
+// node.cu runs it for the primal of a node (G = 32). Thread l of a group
+// is l in [0, G); every thread of the warp passes the same barriers.
+
+#define EM_BASE_NDX 6   // tangent dimension of the free-flyer base
+
+template <class S>
+struct CoopNode {
+  S xc[EM_MAX_NX];         // out: the state after the step
+  S xt[EM_MAX_NX];         // in: the state
+  S dx[EM_MAX_NDX];        // (rollout) x_t^-1 x_try
+  S u[EM_MAX_NU];          // in: s
+  S usq[EM_MAX_NU];        // in: the plant-facing controls
+  S rhs[EM_MAX_NV];        // tau, then tau - bias, then out: the acceleration
+  TreeKin<S> k;
+  S acc[EM_MAX_BODIES][6];
+  S force[EM_MAX_BODIES][6];
+  S Ic[EM_MAX_BODIES][36];
+  S X[36];
+  S IX[36];
+  S M[EM_MAX_NV * EM_MAX_NV];   // out: the Cholesky factor of M (lower, stride EM_MAX_NV)
+  S ck[EM_MAX_SLOTS];      // weighted slot costs
+  S res[EM_MAX_SLOTS][EM_MAX_NR];  // slot residuals
+  S tmp[EM_MAX_NDX];       // scratch of the first thread
+  S inc[EM_MAX_NDX];       // the Euler increment
+};
+
+// body velocities and bias accelerations down the tree (placements known)
+template <class S>
+__device__ __noinline__ void coop_tree_down(const ModelDesc& d, CoopNode<S>& W) {
+  for (int i = 0; i < 6; ++i) W.k.vel[0][i] = W.xt[d.nq + i];
+  for (int j = 0; j < d.nj; ++j) body_velocity<S, S>(d, j, W.xt, W.k);
+  for (int i = 0; i < d.nv; ++i) W.tmp[i] = S(0);
+  rnea_forward<S, S>(d, W.xt, W.tmp, W.k, W.acc);
+}
+
+// bias forces up the tree: rhs = tau - b(q, v)
+template <class S>
+__device__ __noinline__ void coop_tree_up(const ModelDesc& d, CoopNode<S>& W) {
+  rnea_backward<S, S>(d, W.k, W.force, W.tmp);
+  for (int i = 0; i < d.nv; ++i) W.rhs[i] = W.rhs[i] - W.tmp[i];
+}
+
+// a = (L L^T)^-1 rhs, then the Euler step from xt into xc
+template <class S>
+__device__ __noinline__ void coop_solve_and_step(const ModelDesc& d, CoopNode<S>& W) {
+  chol_solve(W.M, d.nv, EM_MAX_NV, W.rhs);
+  euler_next<S, S>(d, W.xt, W.rhs, W.xc, W.inc);
+}
+
+// the cooperative node step: (xt, usq) -> xc, leaving the acceleration in
+// rhs and the Cholesky factor of M in M. Given a node parameter row np,
+// also the running cost at (xt, u) into *c_out: a slot per thread on the
+// threads that the chain down the tree leaves idle, summed in slot order.
+template <class S, int G>
+__device__ __forceinline__ void coop_dyn_next(const ModelDesc& d, int l, CoopNode<S>& W,
+                                              const S* np = nullptr, const S* gp = nullptr,
+                                              S* c_out = nullptr) {
+  const int nv = d.nv, nj = d.nj;
+  for (int r = l; r < nv; r += G) W.rhs[r] = alloc_row<S, S>(d, r, W.usq);
+  for (int j = l; j < nj; j += G)
+    joint_placement<S, S>(d, j, W.xt[7 + j], W.k.p[j + 1], W.k.R[j + 1]);
+  __syncwarp();
+  if (l == 0)
+    coop_tree_down<S>(d, W);
+  else if (np)
+    for (int k = l - 1; k < d.n_slots; k += G - 1)
+      W.ck[k] = slot_cost<S>(d, k, W.xt, W.u, np, gp, W.res[k]);
+  __syncwarp();
+  for (int b = l; b <= nj; b += G) body_force<S, S>(d, b, W.acc[b], W.k.vel[b], W.force[b]);
+  for (int e = l; e < 36 * (nj + 1); e += G) W.Ic[e / 36][e % 36] = S(d.inertia[e / 36][e % 36]);
+  __syncwarp();
+  if (l == 0) coop_tree_up<S>(d, W);
+  // CRBA: the composite inertia of each body into its parent's, X^T Ic X
+  for (int j = nj - 1; j >= 0; --j) {
+    const int b = j + 1, par = d.parent[j];
+    for (int e = l; e < 36; e += G) W.X[e] = xform_entry<S, S>(W.k.R[b], W.k.p[b], e);
+    __syncwarp();
+    for (int e = l; e < 36; e += G) {
+      const int r = e / 6, c = e % 6;
+      S s = W.Ic[b][6 * r] * W.X[c];
+      for (int m = 1; m < 6; ++m) s = s + W.Ic[b][6 * r + m] * W.X[6 * m + c];
+      W.IX[e] = s;
+    }
+    __syncwarp();
+    for (int e = l; e < 36; e += G) {
+      const int r = e / 6, c = e % 6;
+      S s = W.X[r] * W.IX[c];
+      for (int m = 1; m < 6; ++m) s = s + W.X[6 * m + r] * W.IX[6 * m + c];
+      W.Ic[par][e] = W.Ic[par][e] + s;
+    }
+    __syncwarp();
   }
-  return S(d.dt) * total;
+  for (int e = l; e < nv * nv; e += G) {
+    const int r = e / nv, c = e % nv;
+    W.M[EM_MAX_NV * r + c] = (r < 6 && c < 6) ? W.Ic[0][6 * r + c] : S(0);
+  }
+  __syncwarp();
+  for (int j = l; j < nj; j += G) crba_joint_column<S, S>(d, j, W.k, W.Ic, W.M);
+  __syncwarp();
+  // cholesky() above, right-looking with a barrier per column (the same
+  // operations in the same order): each thread takes the pivot, writes
+  // column j of the factor transposed into the upper triangle (the pivot
+  // into tmp) and subtracts its products from the trailing lower triangle;
+  // then the factor moves to the lower triangle
+  for (int j = 0; j < nv; ++j) {
+    const S* Mj = W.M + EM_MAX_NV * j;
+    const S dj = vsqrt(Mj[j]);
+    const S inv_d = S(1) / dj;
+    const int m = nv - 1 - j;
+    for (int e = l; e < 1 + m + m * (m + 1) / 2; e += G) {
+      if (e == 0) {
+        W.tmp[j] = dj;
+      } else if (e <= m) {
+        W.M[EM_MAX_NV * j + j + e] = W.M[EM_MAX_NV * (j + e) + j] * inv_d;
+      } else {
+        int r = 0, t = e - 1 - m;
+        while (t > r) t -= ++r;
+        const int i = j + 1 + r, k = j + 1 + t;
+        W.M[EM_MAX_NV * i + k] = W.M[EM_MAX_NV * i + k]
+            - (W.M[EM_MAX_NV * i + j] * inv_d) * (W.M[EM_MAX_NV * k + j] * inv_d);
+      }
+    }
+    __syncwarp();
+  }
+  for (int e = l; e < nv * nv; e += G) {
+    const int i = e / nv, c = e % nv;
+    if (i > c) W.M[EM_MAX_NV * i + c] = W.M[EM_MAX_NV * c + i];
+    if (i == c) W.M[EM_MAX_NV * i + i] = W.tmp[i];
+  }
+  __syncwarp();
+  if (l == 0) {
+    coop_solve_and_step<S>(d, W);
+    if (np) {
+      S total = S(0);
+      for (int k = 0; k < d.n_slots; ++k) total = total + W.ck[k];
+      *c_out = S(d.dt) * total;
+    }
+  }
 }

@@ -7,148 +7,506 @@
 // allocation + joint torques, free forward dynamics and the symplectic-
 // Euler step; the residual rows of every cost slot; the Jacobian of
 // [xnext (-) xnext0, residuals] over the nz = ndx + nu tangent directions
-// of (x, s); and the Gauss-Newton assembly g = J_r^T (w A_r),
+// of z = (dx, ds); and the Gauss-Newton terms g = J_r^T (w A_r),
 // H = J_r^T diag(w A_rr) J_r. Outputs cost, xnext, Fx, Fu, Lx, Lu, Lxx,
 // Lxu, Luu (row-major, node-leading).
 //
-// Design: one thread block per node, one thread per tangent direction
-// (nz threads, rounded up to a warp). Thread j evaluates the whole node in
-// Dual<S> along basis vector e_j and writes column j of the
-// (ndx + n_res) x nz Jacobian into shared memory; after a barrier, thread 0
-// applies the activations and each thread assembles one column of g/H.
+// Design: one warp per node, K1_NODES nodes per block, everything a node
+// shares in the warp's shared memory.
+// 1. The primal, once per node, by the whole warp (coop_dyn_next,
+//    model.cuh): tau(s), the tree kinematics, the bias b = RNEA(q, v, 0),
+//    M = CRBA(q), its Cholesky factor L, a = M^-1 (tau - b), the Euler
+//    increment D0 and xnext0; then RNEA(q, v, a), whose body accelerations
+//    and subtree forces the tangents read.
+// 2. da/dz_j, a direction per lane, through the implicit function
+//    RNEA(x (+) z, a) = tau(s): for a state direction, da = -M^-1 d_j RNEA
+//    with a held, by a tangent-only RNEA that reads the primal (no CRBA,
+//    no Cholesky, no dual numbers; gravity enters through the base
+//    rotation); for a control direction, da = M^-1 dtau/ds_j. One solve
+//    against the shared L each.
+// 3. The Euler step and the state difference enter through two 6 x 6 base
+//    blocks per node: [Fx Fu] e_j = blockdiag(Ez, I) e_j + blockdiag(ED, I)
+//    dD_j, dD_j = [(dv_j + da_j dt) dt, da_j dt], with Ez the adjoint of
+//    exp6(D0)^-1 (closed form) and ED the right Jacobian of exp6 at D0 (a
+//    dual column per lane). The x-only slots' Jacobians take one dual
+//    column per lane in the same pass: for a STATE slot only its 6 x 6
+//    base block (the rest is the identity).
+// 4. Gauss-Newton by slot structure (slot_on_x): Lx and Lxx from the x-only
+//    slots, a STATE slot through its base block; Lu and the diagonal Luu
+//    from the CONTROL slots, whose Jacobian is the identity on s; Lxu is
+//    exactly zero. The activations go a residual row per lane.
+// 5. Every output leaves as contiguous runs: consecutive lanes write
+//    consecutive entries (a row of Fx / Fu at a time).
 //
-// What bounds it on an H100: arithmetic and local memory, not device
-// memory. Each of the nz threads redoes the primal (27x redundant at the
-// flagship) and keeps the dual CRBA/Cholesky work arrays (~10 KB in f64)
-// in local memory; the per-node input is ~0.5 KB and the output ~4 KB.
-// The lever for later: the implicit-function structure of the dynamics
-// derivative (one RNEA tangent + a solve against a shared factor per
-// direction) and coalesced output stores.
+// What bounds it on an H100: latency. A node is a chain of about 50
+// barrier phases in one warp (the cooperative primal's CRBA and Cholesky,
+// the tree chains, the dual pass with its transcendental functions);
+// about 20 warps fit an SM (registers and shared memory), too few to hide
+// it. Device memory is far from it: 73 MB in f32 at B=512 (about 1 100
+// outputs and 135 inputs per node) would take 22 us at 3.35 TB/s. The
+// 18 x 27 blocks fill no tensor-core tile and the solver needs full f32,
+// so the FMA units do the products.
 #include <cuda_runtime.h>
 
 #include "model.cuh"
 
+#define K1_NODES 4   // nodes per block, one warp each
+// blocks per SM the register budget is cut for: 20 warps, which the
+// shared memory of a block (~34 KB in f32) also admits; it measured faster
+// than 16 warps at 128 registers
+#define K1_MIN_BLOCKS 5
+
+// A STATE residual (x (+) z) (-) ref has the Jacobian blockdiag(A, I), A
+// the 6 x 6 block of the base: only A takes dual passes and is stored.
+// Other x-only kinds (frame slots later) take every column and row.
+__host__ __device__ __forceinline__ bool slot_block_identity(const ModelDesc& d, int k) {
+  return d.slot_kind[k] == EM_KIND_STATE;
+}
+
+__host__ __device__ __forceinline__ int slot_jac_rows(const ModelDesc& d, int k) {
+  return slot_block_identity(d, k) ? EM_BASE_NDX : d.slot_nr[k];
+}
+
+__host__ __device__ __forceinline__ int slot_jac_cols(const ModelDesc& d, int k) {
+  return slot_block_identity(d, k) ? EM_BASE_NDX : 2 * d.nv;
+}
+
+// offsets (in scalars) of one warp's shared arrays, after the K1_NODES
+// CoopNode working sets of the primal
+struct K1Layout {
+  int DA;     // [nz][nv] da / dz_j
+  int Ez;     // [6][6] base block of d/dz (x (+) z (+) D0) (-) xnext0
+  int ED;     // [6][6] base block of d/dD (x (+) D) (-) xnext0 at D0 (the
+              // Euler increment)
+  int Jx;     // [slot_jac_rows of the x-only slots][ndx] their Jacobians
+  int val;    // [n_res] residual values
+  int act;    // [n_res] each row's share of 2 a
+  int wA;     // [n_res] w * A_r
+  int wAA;    // [n_res] w * A_rr
+  int total;
+  int n_tasks;   // dual columns of the x-only slots
+};
+
+__host__ __device__ inline K1Layout k1_layout(const ModelDesc& d) {
+  const int nv = d.nv, ndx = 2 * nv, nz = ndx + d.nu, n_res = d.n_res;
+  K1Layout o;
+  int rows = 0;
+  o.n_tasks = 0;
+  for (int k = 0; k < d.n_slots; ++k)
+    if (slot_on_x(d.slot_kind[k])) {
+      rows += slot_jac_rows(d, k);
+      o.n_tasks += slot_jac_cols(d, k);
+    }
+  int at = 0;
+  o.DA = at;  at += nz * nv;
+  o.Ez = at;  at += EM_BASE_NDX * EM_BASE_NDX;
+  o.ED = at;  at += EM_BASE_NDX * EM_BASE_NDX;
+  o.Jx = at;  at += rows * ndx;
+  o.val = at; at += n_res;
+  o.act = at; at += n_res;
+  o.wA = at;  at += n_res;
+  o.wAA = at; at += n_res;
+  o.total = at;
+  return o;
+}
+
 template <class S>
-__global__ void node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
-                            const S* __restrict__ x, const S* __restrict__ s,
-                            const S* __restrict__ node_par,
-                            const S* __restrict__ glob_par, S* cost, S* xnext,
-                            S* Fx, S* Fu, S* Lx, S* Lu, S* Lxx, S* Lxu, S* Luu) {
-  typedef Dual<S> D;
-  const ModelDesc& d = *desc;
-  const int n = blockIdx.x;
-  const int j = threadIdx.x;
-  if (n >= N) return;
-  const int nq = d.nq, nv = d.nv, nx = nq + nv, ndx = 2 * nv, nu = d.nu;
-  const int nz = ndx + nu;
-  const int n_res = d.n_res;
-  const int n_rows = ndx + n_res;
+__host__ __device__ inline size_t k1_smem_bytes(const K1Layout& lay) {
+  return K1_NODES * (sizeof(CoopNode<S>) + sizeof(S) * (size_t)lay.total);
+}
 
-  extern __shared__ unsigned char smem_raw[];
-  S* J = reinterpret_cast<S*>(smem_raw);   // [n_rows][nz]
-  S* val = J + n_rows * nz;                // [n_rows] row values
-  S* wA = val + n_rows;                    // [n_res] w * A_r
-  S* wAA = wA + n_res;                     // [n_res] w * A_rr
-
-  const S* np = node_par + (size_t)n * d.node_dim;
-  const S* gp = glob_par + (size_t)(n / T) * d.glob_dim;
-
-  if (j < nz) {
-    S xl[EM_MAX_NX], sl[EM_MAX_NU], xn0[EM_MAX_NX];
-    for (int i = 0; i < nx; ++i) xl[i] = x[(size_t)n * nx + i];
-    for (int i = 0; i < nu; ++i) sl[i] = s[(size_t)n * nu + i];
-    dyn_next<S, S>(d, xl, sl, gp, xn0);
-
-    // fun(z) along e_j: xx = x (+) z[:ndx], ss = s + z[ndx:]
-    D xd[EM_MAX_NX], dz[EM_MAX_NDX], xx[EM_MAX_NX], ss[EM_MAX_NU];
-    for (int i = 0; i < nx; ++i) xd[i] = D(xl[i]);
-    for (int i = 0; i < ndx; ++i) dz[i] = D(S(0), S(i == j ? 1 : 0));
-    integrate<S, D>(d, xd, dz, xx);
-    for (int i = 0; i < nu; ++i) ss[i] = D(sl[i], S(ndx + i == j ? 1 : 0));
-
-    D xn[EM_MAX_NX], x0d[EM_MAX_NX], r[EM_MAX_NR];
-    dyn_next<S, D>(d, xx, ss, gp, xn);
-    for (int i = 0; i < nx; ++i) x0d[i] = D(xn0[i]);
-    state_diff<S, D>(d, x0d, xn, r);
-    for (int i = 0; i < ndx; ++i) {
-      J[i * nz + j] = r[i].d;
-      if (j == 0) val[i] = r[i].v;
-    }
-    int row = ndx;
-    for (int k = 0; k < d.n_slots; ++k) {
-      slot_residual<S, D>(d, k, xx, ss, np, r);
-      for (int i = 0; i < d.slot_nr[k]; ++i) {
-        J[(row + i) * nz + j] = r[i].d;
-        if (j == 0) val[row + i] = r[i].v;
-      }
-      row += d.slot_nr[k];
-    }
-    if (j == 0)
-      for (int i = 0; i < nx; ++i) xnext[(size_t)n * nx + i] = xn0[i];
+// o = d motion_to_child(p, R, m) along (dp, dR, dm)
+template <class S>
+__device__ __forceinline__ void tan_motion_to_child(const S* p, const S* R, const S* m,
+                                                    const S* dp, const S* dR, const S* dm,
+                                                    S* o) {
+  S pxw[3], dpxw[3], pxdw[3], t[3], dt[3], a[3], b[3];
+  cross3(p, m + 3, pxw);
+  cross3(dp, m + 3, dpxw);
+  cross3(p, dm + 3, pxdw);
+  for (int i = 0; i < 3; ++i) {
+    t[i] = m[i] - pxw[i];
+    dt[i] = dm[i] - (dpxw[i] + pxdw[i]);
   }
-  __syncthreads();
+  mtv3(R, dt, a);
+  mtv3(dR, t, b);
+  for (int i = 0; i < 3; ++i) o[i] = a[i] + b[i];
+  mtv3(R, dm + 3, a);
+  mtv3(dR, m + 3, b);
+  for (int i = 0; i < 3; ++i) o[3 + i] = a[i] + b[i];
+}
 
-  if (j == 0) {
-    const int K = d.n_slots;
-    S c = S(0);
-    int row = 0;
-    for (int k = 0; k < K; ++k) {
-      S Ar[EM_MAX_NR], Arr[EM_MAX_NR];
-      S a = activation<S>(d, k, val + ndx + row, gp, Ar, Arr);
-      S wk = S(d.dt) * np[k] * np[K + k];
-      c = c + wk * a;
-      for (int i = 0; i < d.slot_nr[k]; ++i) {
-        wA[row + i] = wk * Ar[i];
-        wAA[row + i] = wk * Arr[i];
-      }
-      row += d.slot_nr[k];
-    }
-    cost[n] = c;
+// o = d force_to_parent(p, R, f) along (dp, dR, df)
+template <class S>
+__device__ __forceinline__ void tan_force_to_parent(const S* p, const S* R, const S* f,
+                                                    const S* dp, const S* dR, const S* df,
+                                                    S* o) {
+  S Rf[3], dRf[3], a[3], b[3], c[3];
+  mv3(R, f, Rf);
+  mv3(dR, f, a);
+  mv3(R, df, b);
+  for (int i = 0; i < 3; ++i) dRf[i] = a[i] + b[i];
+  mv3(dR, f + 3, a);
+  mv3(R, df + 3, b);
+  cross3(dp, Rf, c);
+  for (int i = 0; i < 3; ++i) o[3 + i] = a[i] + b[i] + c[i];
+  cross3(p, dRf, c);
+  for (int i = 0; i < 3; ++i) {
+    o[i] = dRf[i];
+    o[3 + i] = o[3 + i] + c[i];
   }
-  __syncthreads();
+}
 
-  if (j < nz) {
-    const S* Jr = J + ndx * nz;   // residual rows
-    S g = S(0);
-    for (int r = 0; r < n_res; ++r) g = g + wA[r] * Jr[r * nz + j];
-    if (j < ndx) {
-      Lx[(size_t)n * ndx + j] = g;
-      for (int i = 0; i < ndx; ++i)
-        Fx[((size_t)n * ndx + i) * ndx + j] = J[i * nz + j];
+// out = -d RNEA(x (+) t e_j, a)/dt at t = 0 for a state direction j < ndx,
+// a held. Tangent-only forward mode: W holds the primal (the kinematics,
+// the body accelerations and the subtree forces of RNEA(x, a)), which is
+// read, not recomputed.
+template <class S>
+__device__ __noinline__ void rnea_tangent(const ModelDesc& d, const CoopNode<S>& W, int j,
+                                          S* out) {
+  const int nq = d.nq, nv = d.nv, nj = d.nj;
+  S dvel[EM_MAX_BODIES][6], dacc[EM_MAX_BODIES][6], dF[EM_MAX_BODIES][6];
+  S dps[EM_MAX_BODIES][3], dRs[EM_MAX_BODIES][9];
+  // the base: a velocity direction moves its velocity; under a rotation
+  // direction R -> R exp([t e]x), gravity in the base g = R^T g_w moves by
+  // g x e
+  for (int i = 0; i < 6; ++i) {
+    dvel[0][i] = S(j == nv + i ? 1 : 0);
+    dacc[0][i] = S(0);
+  }
+  if (j >= 3 && j < 6) {
+    S gw[3] = {S(0), S(0), S(d.gravity)}, g[3], e[3];
+    quat_rotate_inv<S, S>(W.xt + 3, gw, g);
+    for (int i = 0; i < 3; ++i) e[i] = S(j - 3 == i ? 1 : 0);
+    cross3(g, e, dacc[0]);
+  }
+  for (int jj = 0; jj < nj; ++jj) {
+    const int b = jj + 1, par = d.parent[jj];
+    const S* p = W.k.p[b];
+    const S* R = W.k.R[b];
+    const S dq = S(j == 6 + jj ? 1 : 0);
+    const S dv = S(j == nv + 6 + jj ? 1 : 0);
+    S* dp = dps[b];
+    S* dR = dRs[b];
+    if (d.joint_type[jj] == EM_REVOLUTE) {
+      // R = jR exp3(axis q): dR = R hat(axis) dq
+      const double* ax = d.joint_axis[jj];
+      for (int r = 0; r < 3; ++r) {
+        dR[3 * r] = (R[3 * r + 1] * S(ax[2]) - R[3 * r + 2] * S(ax[1])) * dq;
+        dR[3 * r + 1] = (R[3 * r + 2] * S(ax[0]) - R[3 * r] * S(ax[2])) * dq;
+        dR[3 * r + 2] = (R[3 * r] * S(ax[1]) - R[3 * r + 1] * S(ax[0])) * dq;
+        dp[r] = S(0);
+      }
     } else {
-      Lu[(size_t)n * nu + j - ndx] = g;
-      for (int i = 0; i < ndx; ++i)
-        Fu[((size_t)n * ndx + i) * nu + j - ndx] = J[i * nz + j];
+      // p = jp + jR axis q: dp = jR axis dq
+      for (int r = 0; r < 3; ++r) {
+        dp[r] = (S(d.joint_R[jj][3 * r]) * S(d.joint_axis[jj][0])
+                 + S(d.joint_R[jj][3 * r + 1]) * S(d.joint_axis[jj][1])
+                 + S(d.joint_R[jj][3 * r + 2]) * S(d.joint_axis[jj][2])) * dq;
+      }
+      for (int i = 0; i < 9; ++i) dR[i] = S(0);
     }
-    // column j of H
-    for (int i = 0; i < nz; ++i) {
-      S h = S(0);
-      for (int r = 0; r < n_res; ++r)
-        h = h + wAA[r] * (Jr[r * nz + i] * Jr[r * nz + j]);
-      if (i < ndx && j < ndx)
-        Lxx[((size_t)n * ndx + i) * ndx + j] = h;
-      else if (i < ndx)
-        Lxu[((size_t)n * ndx + i) * nu + j - ndx] = h;
-      else if (j >= ndx)
-        Luu[((size_t)n * nu + i - ndx) * nu + j - ndx] = h;
+    S Sj[6], o[6], c1[6], c2[6], Svd[6], dSvd[6];
+    joint_subspace<S>(d, jj, Sj);
+    tan_motion_to_child(p, R, W.k.vel[par], dp, dR, dvel[par], o);
+    for (int i = 0; i < 6; ++i) dvel[b][i] = o[i] + Sj[i] * dv;
+    const S vj = W.xt[nq + 6 + jj];
+    for (int i = 0; i < 6; ++i) {
+      Svd[i] = Sj[i] * vj;
+      dSvd[i] = Sj[i] * dv;
     }
+    tan_motion_to_child(p, R, W.acc[par], dp, dR, dacc[par], o);
+    motion_cross(dvel[b], Svd, c1);
+    motion_cross(W.k.vel[b], dSvd, c2);
+    for (int i = 0; i < 6; ++i) dacc[b][i] = o[i] + c1[i] + c2[i];
+  }
+  // body forces: d (I acc + v x* (I v))
+  for (int b = 0; b <= nj; ++b) {
+    S Iv[6], dIv[6], dIa[6], c1[6], c2[6];
+    for (int r = 0; r < 6; ++r) {
+      S sv = S(0), sdv = S(0), sda = S(0);
+      for (int c = 0; c < 6; ++c) {
+        const S I = S(d.inertia[b][6 * r + c]);
+        sv = sv + I * W.k.vel[b][c];
+        sdv = sdv + I * dvel[b][c];
+        sda = sda + I * dacc[b][c];
+      }
+      Iv[r] = sv;
+      dIv[r] = sdv;
+      dIa[r] = sda;
+    }
+    motion_cross_force(dvel[b], Iv, c1);
+    motion_cross_force(W.k.vel[b], dIv, c2);
+    for (int i = 0; i < 6; ++i) dF[b][i] = dIa[i] + c1[i] + c2[i];
+  }
+  // up the tree, with the subtree forces of the primal
+  for (int jj = nj - 1; jj >= 0; --jj) {
+    const int b = jj + 1, par = d.parent[jj];
+    S Sj[6], o[6];
+    joint_subspace<S>(d, jj, Sj);
+    S t = S(0);
+    for (int i = 0; i < 6; ++i) t = t + Sj[i] * dF[b][i];
+    out[6 + jj] = -t;
+    tan_force_to_parent(W.k.p[b], W.k.R[b], W.force[b], dps[b], dRs[b], dF[b], o);
+    for (int i = 0; i < 6; ++i) dF[par][i] = dF[par][i] + o[i];
+  }
+  for (int i = 0; i < 6; ++i) out[i] = -dF[0][i];
+}
+
+// out = dtau/ds_i for control i (the squash's slope times the allocation)
+template <class S>
+__device__ __noinline__ void control_tangent(const ModelDesc& d, const CoopNode<S>& W,
+                                             const S* gp, int i, S* out) {
+  typedef Dual<S> D;
+  D ss[EM_MAX_NU], tau[EM_MAX_NV];
+  for (int c = 0; c < d.nu; ++c) ss[c] = D(W.u[c], S(c == i ? 1 : 0));
+  control_tau<S, D>(d, ss, gp, tau);
+  for (int r = 0; r < d.nv; ++r) out[r] = tau[r].d;
+}
+
+// Ez = the adjoint of exp6(D0)^-1, i.e. the motion transform to the pose
+// exp6(D0). Out of line, like the heavy functions of model.cuh: inlined
+// into the kernel body, nvcc 12.8 gave a wrong Ez block (1e-5 relative in
+// Fx, in f64 or in f32 depending on the code around it), which the f64
+// parity gate on the card caught.
+template <class S>
+__device__ __noinline__ void euler_adjoint(const S* D0, S* Ez) {
+  S p[3], q[4], R[9];
+  exp6<S, S>(D0, p, q);
+  quat_to_rot(q, R);
+  for (int e = 0; e < EM_BASE_NDX * EM_BASE_NDX; ++e) Ez[e] = xform_entry<S, S>(R, p, e);
+}
+
+// one dual column: rows r < nr of d/dt integrate(x, D0 + t e_i) (-) target
+// at t = 0 (D0 null for a zero increment) into col[r * stride]; the values
+// of rows r < nvals into vals when given
+template <class S>
+__device__ __noinline__ void dual_column(const ModelDesc& d, const S* x, int i, const S* D0,
+                                         const S* target, int nr, S* col, int stride,
+                                         int nvals, S* vals) {
+  typedef Dual<S> D;
+  const int nx = d.nq + d.nv, ndx = 2 * d.nv;
+  D xd[EM_MAX_NX], z[EM_MAX_NDX], y[EM_MAX_NX];
+  for (int c = 0; c < nx; ++c) xd[c] = D(x[c]);
+  for (int c = 0; c < ndx; ++c) z[c] = D(D0 ? D0[c] : S(0), S(c == i ? 1 : 0));
+  integrate<S, D>(d, xd, z, y);
+  for (int c = 0; c < nx; ++c) xd[c] = D(target[c]);
+  state_diff<S, D>(d, xd, y, z);
+  for (int r = 0; r < nr; ++r) col[r * stride] = z[r].d;
+  if (vals)
+    for (int r = 0; r < nvals; ++r) vals[r] = z[r].v;
+}
+
+template <class S>
+__global__ void __launch_bounds__(32 * K1_NODES, K1_MIN_BLOCKS)
+node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
+            const S* __restrict__ x, const S* __restrict__ s,
+            const S* __restrict__ node_par, const S* __restrict__ glob_par,
+            S* cost, S* xnext, S* Fx, S* Fu, S* Lx, S* Lu, S* Lxx, S* Lxu,
+            S* Luu) {
+  const ModelDesc& d = *desc;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = blockIdx.x * K1_NODES + warp;
+  if (n >= N) return;   // whole warps only: nothing below syncs the block
+  const int nv = d.nv, nx = d.nq + nv, ndx = 2 * nv, nu = d.nu, nz = ndx + nu;
+  const int K = d.n_slots, n_res = d.n_res;
+  const K1Layout lay = k1_layout(d);
+  extern __shared__ unsigned char smem_raw[];
+  CoopNode<S>& W = reinterpret_cast<CoopNode<S>*>(smem_raw)[warp];
+  S* sm = reinterpret_cast<S*>(reinterpret_cast<CoopNode<S>*>(smem_raw) + K1_NODES)
+          + warp * lay.total;
+  S* DA = sm + lay.DA;
+  S* Ez = sm + lay.Ez;
+  S* ED = sm + lay.ED;
+  S* Jx = sm + lay.Jx;
+  S* val = sm + lay.val;
+  S* act = sm + lay.act;
+  S* wA = sm + lay.wA;
+  S* wAA = sm + lay.wAA;
+
+  const size_t nn = (size_t)n;
+  const S* np = node_par + nn * d.node_dim;
+  const S* gp = glob_par + (size_t)(n / T) * d.glob_dim;
+  for (int i = lane; i < nx; i += 32) W.xt[i] = x[nn * nx + i];
+  for (int i = lane; i < nu; i += 32) {
+    W.u[i] = s[nn * nu + i];
+    W.usq[i] = control_u<S, S>(d, i, W.u[i], gp);
+  }
+  __syncwarp();
+
+  // the primal, once per node, by the whole warp, then RNEA(x, a): the
+  // body accelerations and subtree forces the tangents read
+  coop_dyn_next<S, 32>(d, lane, W);
+  __syncwarp();
+  if (lane == 0) rnea_forward<S, S>(d, W.xt, W.rhs, W.k, W.acc);
+  __syncwarp();
+  for (int b = lane; b <= d.nj; b += 32) body_force<S, S>(d, b, W.acc[b], W.k.vel[b], W.force[b]);
+  __syncwarp();
+  if (lane == 0) rnea_backward<S, S>(d, W.k, W.force, W.tmp);
+  __syncwarp();
+
+  // da/dz_j, a direction per lane: -M^-1 d RNEA for a state direction
+  // (RNEA(x (+) z, a) = tau along z), M^-1 dtau/ds for a control one
+  for (int j = lane; j < nz; j += 32) {
+    S* daj = DA + j * nv;
+    if (j < ndx)
+      rnea_tangent<S>(d, W, j, daj);
+    else
+      control_tangent<S>(d, W, gp, j - ndx, daj);
+    chol_solve(W.M, nv, EM_MAX_NV, daj);
+  }
+  // dual columns, one pass with a column per lane: ED, the base block of
+  // d/dD (x (+) D) (-) xnext0 at the Euler increment D0, and the x-only
+  // slots' Jacobians. Ez = d/dz (x (+) z (+) D0) (-) xnext0 is the adjoint
+  // of exp6(D0)^-1, the motion transform to the pose exp6(D0).
+  if (lane == 0) euler_adjoint<S>(W.inc, Ez);
+  for (int task = lane; task < EM_BASE_NDX + lay.n_tasks; task += 32) {
+    if (task < EM_BASE_NDX) {
+      dual_column<S>(d, W.xt, task, W.inc, W.xc, EM_BASE_NDX, ED + task, EM_BASE_NDX, 0,
+                     nullptr);
+      continue;
+    }
+    int k = 0, row = 0, xrow = 0, j = task - EM_BASE_NDX;
+    for (;; ++k) {
+      if (slot_on_x(d.slot_kind[k])) {
+        const int nd = slot_jac_cols(d, k);
+        if (j < nd) break;
+        j -= nd;
+        xrow += slot_jac_rows(d, k);
+      }
+      row += d.slot_nr[k];
+    }
+    dual_column<S>(d, W.xt, j, nullptr, np + d.slot_ref_off[k], slot_jac_rows(d, k),
+                   Jx + xrow * ndx + j, ndx, d.slot_nr[k], j == 0 ? val + row : nullptr);
+  }
+  for (int k = 0, row = 0; k < K; row += d.slot_nr[k], ++k)
+    if (!slot_on_x(d.slot_kind[k])) {
+      const S* ref = np + d.slot_ref_off[k];
+      for (int i = lane; i < d.slot_nr[k]; i += 32) val[row + i] = W.u[i] - ref[i];
+    }
+  __syncwarp();
+
+  // [Fx Fu] column j = Fz e_j + FD dD_j with Fz = blockdiag(Ez, I),
+  // FD = blockdiag(ED, I) and dD_j = [(dv_j + da_j dt) dt, da_j dt], written
+  // a row at a time (consecutive lanes, consecutive entries)
+  for (int j = lane; j < nz; j += 32) {
+    const S* daj = DA + j * nv;
+    const S dt = S(d.dt);
+    auto dD = [&](int c) {
+      return c < nv ? (S(j == nv + c ? 1 : 0) + daj[c] * dt) * dt : daj[c - nv] * dt;
+    };
+    for (int r = 0; r < ndx; ++r) {
+      S v;
+      if (r < EM_BASE_NDX) {
+        v = j < EM_BASE_NDX ? Ez[r * EM_BASE_NDX + j] : S(0);
+        for (int c = 0; c < EM_BASE_NDX; ++c) v = v + ED[r * EM_BASE_NDX + c] * dD(c);
+      } else {
+        v = S(r == j ? 1 : 0) + dD(r);
+      }
+      if (j < ndx)
+        Fx[(nn * ndx + r) * ndx + j] = v;
+      else
+        Fu[(nn * ndx + r) * nu + j - ndx] = v;
+    }
+  }
+
+  // activations: a residual row per lane, then each slot's rows summed in
+  // order (the arithmetic of activation())
+  for (int r = lane; r < n_res; r += 32) {
+    int k = 0, i = r;
+    while (i >= d.slot_nr[k]) i -= d.slot_nr[k++];
+    const S* w = gp + d.slot_glob_off[k];
+    const int nr = d.slot_nr[k];
+    const S wk = S(d.dt) * np[k] * np[K + k];
+    S Ar, Arr;
+    act[r] = activation_row<S>(d.slot_act[k], val[r], w[i], w[nr + i], w[2 * nr + i], Ar, Arr);
+    wA[r] = wk * Ar;
+    wAA[r] = wk * Arr;
+  }
+  __syncwarp();
+  for (int k = lane; k < K; k += 32) {
+    int row = 0;
+    for (int kk = 0; kk < k; ++kk) row += d.slot_nr[kk];
+    S a = S(0);
+    for (int i = 0; i < d.slot_nr[k]; ++i) a = a + act[row + i];
+    W.ck[k] = (S(d.dt) * np[k] * np[K + k]) * (S(0.5) * a);
+  }
+  __syncwarp();
+
+  // outputs, each a contiguous run per node
+  if (lane == 0) {
+    S c = S(0);
+    for (int k = 0; k < K; ++k) c = c + W.ck[k];
+    cost[nn] = c;
+  }
+  for (int i = lane; i < nx; i += 32) xnext[nn * nx + i] = W.xc[i];
+  for (int e = lane; e < ndx * nu; e += 32) Lxu[nn * ndx * nu + e] = S(0);
+  // Lx (e < ndx) and Lxx from the x-only slots' rows. A STATE slot's
+  // Jacobian is blockdiag(A, I) with A its base block (the other entries
+  // are exact zeros, whose terms are skipped): only A takes products.
+  for (int e = lane; e < ndx + ndx * ndx; e += 32) {
+    const bool grad = e < ndx;
+    const int i = grad ? e : (e - ndx) / ndx;
+    const int c = grad ? 0 : (e - ndx) % ndx;
+    S h = S(0);
+    int row = 0, xrow = 0;
+    for (int k = 0; k < K; ++k) {
+      const int nr = d.slot_nr[k];
+      if (slot_on_x(d.slot_kind[k])) {
+        if (slot_block_identity(d, k) && (i >= EM_BASE_NDX || (!grad && c >= EM_BASE_NDX))) {
+          if (grad)
+            h = h + wA[row + i];
+          else if (i == c)
+            h = h + wAA[row + i];
+        } else {
+          for (int r = 0; r < slot_jac_rows(d, k); ++r) {
+            const S* Jr = Jx + (xrow + r) * ndx;
+            h = grad ? h + Jr[i] * wA[row + r] : h + Jr[i] * (wAA[row + r] * Jr[c]);
+          }
+        }
+        xrow += slot_jac_rows(d, k);
+      }
+      row += nr;
+    }
+    if (grad)
+      Lx[nn * ndx + i] = h;
+    else
+      Lxx[nn * ndx * ndx + e - ndx] = h;
+  }
+  // Lu (e < nu) and Luu from the CONTROL slots (identity Jacobians)
+  for (int e = lane; e < nu + nu * nu; e += 32) {
+    const bool grad = e < nu;
+    const int i = grad ? e : (e - nu) / nu;
+    const int c = grad ? i : (e - nu) % nu;
+    S h = S(0);
+    if (i == c) {
+      int row = 0;
+      for (int k = 0; k < K; ++k) {
+        if (!slot_on_x(d.slot_kind[k])) h = h + (grad ? wA : wAA)[row + i];
+        row += d.slot_nr[k];
+      }
+    }
+    if (grad)
+      Lu[nn * nu + i] = h;
+    else
+      Luu[nn * nu * nu + e - nu] = h;
   }
 }
 
 template <class S>
-static int launch_node(const void* desc, int N, int T, int nz, int n_rows,
-                       int n_res, const S* x, const S* s, const S* node_par,
-                       const S* glob_par, S* cost, S* xnext, S* Fx, S* Fu,
-                       S* Lx, S* Lu, S* Lxx, S* Lxu, S* Luu, void* stream) {
-  const int threads = ((nz + 31) / 32) * 32;
-  const size_t smem = sizeof(S) * ((size_t)n_rows * nz + n_rows + 2 * n_res);
+static int launch_node(const void* desc, const ModelDesc* host_desc, int N, int T, const S* x, const S* s,
+                       const S* node_par, const S* glob_par, S* cost, S* xnext,
+                       S* Fx, S* Fu, S* Lx, S* Lu, S* Lxx, S* Lxu, S* Luu,
+                       void* stream) {
+  const size_t smem = k1_smem_bytes<S>(k1_layout(*host_desc));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         node_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   if (N > 0)
-    node_kernel<S><<<N, threads, smem, (cudaStream_t)stream>>>(
+    node_kernel<S><<<(N + K1_NODES - 1) / K1_NODES, 32 * K1_NODES, smem,
+                     (cudaStream_t)stream>>>(
         (const ModelDesc*)desc, N, T, x, s, node_par, glob_par, cost, xnext,
         Fx, Fu, Lx, Lu, Lxx, Lxu, Luu);
   return (int)cudaGetLastError();
@@ -158,24 +516,22 @@ extern "C" {
 
 int eagle_desc_size() { return (int)sizeof(ModelDesc); }
 
-int eagle_node_f32(const void* desc, int N, int T, int nz, int n_rows, int n_res,
-                   const float* x, const float* s, const float* node_par,
-                   const float* glob_par, float* cost, float* xnext, float* Fx,
-                   float* Fu, float* Lx, float* Lu, float* Lxx, float* Lxu,
-                   float* Luu, void* stream) {
-  return launch_node<float>(desc, N, T, nz, n_rows, n_res, x, s, node_par,
-                            glob_par, cost, xnext, Fx, Fu, Lx, Lu, Lxx, Lxu,
-                            Luu, stream);
+int eagle_node_f32(const void* desc, const void* host_desc, int N, int T, const float* x, const float* s,
+                   const float* node_par, const float* glob_par, float* cost,
+                   float* xnext, float* Fx, float* Fu, float* Lx, float* Lu,
+                   float* Lxx, float* Lxu, float* Luu, void* stream) {
+  return launch_node<float>(desc, (const ModelDesc*)host_desc, N, T, x, s,
+                            node_par, glob_par, cost, xnext, Fx, Fu, Lx, Lu,
+                            Lxx, Lxu, Luu, stream);
 }
 
-int eagle_node_f64(const void* desc, int N, int T, int nz, int n_rows, int n_res,
-                   const double* x, const double* s, const double* node_par,
-                   const double* glob_par, double* cost, double* xnext,
-                   double* Fx, double* Fu, double* Lx, double* Lu, double* Lxx,
-                   double* Lxu, double* Luu, void* stream) {
-  return launch_node<double>(desc, N, T, nz, n_rows, n_res, x, s, node_par,
-                             glob_par, cost, xnext, Fx, Fu, Lx, Lu, Lxx, Lxu,
-                             Luu, stream);
+int eagle_node_f64(const void* desc, const void* host_desc, int N, int T, const double* x, const double* s,
+                   const double* node_par, const double* glob_par, double* cost,
+                   double* xnext, double* Fx, double* Fu, double* Lx, double* Lu,
+                   double* Lxx, double* Lxu, double* Luu, void* stream) {
+  return launch_node<double>(desc, (const ModelDesc*)host_desc, N, T, x, s,
+                             node_par, glob_par, cost, xnext, Fx, Fu, Lx, Lu,
+                             Lxx, Lxu, Luu, stream);
 }
 
 }  // extern "C"

@@ -13,82 +13,198 @@
 // state after the last node, xn (B, A, nx). The terminal node and the
 // divergence checks stay in PyTorch (solvers/fddp.py).
 //
-// Design: one thread per lane, the whole horizon in a loop, the carry in
-// registers/local memory; it runs the same templated dynamics as K1
-// (model.cuh) with V = S.
+// Design: one block per problem b; in it one group of RO_G = 8 threads per
+// alpha lane (A * RO_G threads, rounded up to whole warps; the groups past
+// A compute lane A-1 again and store nothing). Eight, not a warp: at B=512
+// and A=10 the 512 blocks of 96 threads are all resident at once on 132
+// SMs (about 4 blocks, 12 warps each), where warp-sized groups (320
+// threads a block) would run in about four waves; the four groups of a
+// warp run the same instructions on different alphas, so they share its
+// issue slots without diverging.
+// - The per-node operands every alpha of b reads (x_t, u_t, k_t, K_t, f_t
+//   and the node parameter row, about 320 values at the flagship) are
+//   loaded once per block into shared memory with cp.async, double-
+//   buffered: node t+1's copies are in flight while node t computes. The
+//   problem's global row is loaded once.
+// - Each step is coop_dyn_next (model.cuh), the cooperative node step:
+//   the feedback law and the squash a control row per thread, the body
+//   placements and forces a body per thread, the CRBA's 6x6 transforms an
+//   entry per thread, the mass matrix a joint column per thread, the
+//   Cholesky factor a column per barrier; the chains down and up the tree,
+//   the solve and the Euler step on the group's first thread, while the
+//   other threads take the running cost a slot each. The group's working
+//   set lives in shared memory.
+// - xs_try and us_try leave per node as contiguous runs written by the
+//   group; cs is staged for the whole horizon and leaves as one run per
+//   lane.
 //
-// What bounds it on an H100: occupancy and latency. 512 x 10 = 5120
-// threads underfill 132 SMs and each thread walks 29 dependent steps, so
-// the card idles; the per-step reads (~1 KB of gains per lane and node)
-// come from L2. A later PR can split a lane's dynamics over a warp.
+// What bounds it on an H100: latency. Every node is a chain of about 35
+// barrier phases through shared memory, and the 29 nodes follow one
+// another; all 512 blocks are resident at once, so the kernel takes one
+// block's chain. The bytes (about 18 MB in and 17 MB out in f32) would take
+// about 11 us at 3.35 TB/s.
 #include <cuda_runtime.h>
 
 #include "model.cuh"
 
-#define RO_THREADS 128
+#define RO_G 8             // threads per alpha lane
+#define RO_MAX_THREADS 256
+
+// ---------------------------------------------------------------------------
+// asynchronous copies of the per-node operands
+// ---------------------------------------------------------------------------
 
 template <class S>
-__global__ void rollout_kernel(const ModelDesc* __restrict__ desc, int B, int A, int T,
-                               const S* __restrict__ xs, const S* __restrict__ us,
-                               const S* __restrict__ kff, const S* __restrict__ Kfb,
-                               const S* __restrict__ fs, const S* __restrict__ x0,
-                               const S* __restrict__ alphas,
-                               const unsigned char* __restrict__ keep,
-                               const S* __restrict__ node_par,
-                               const S* __restrict__ glob_par,
-                               S* xs_try, S* us_try, S* cs, S* xn_last) {
-  const ModelDesc& d = *desc;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B * A) return;
-  const int b = lane / A, a = lane % A;
-  const int nq = d.nq, nv = d.nv, nx = nq + nv, ndx = 2 * nv, nu = d.nu;
-  const S alpha = alphas[a];
-  const bool kp = keep[lane] != 0;
-  const S* gp = glob_par + (size_t)b * d.glob_dim;
+__device__ __forceinline__ void cp_async_elem(S* smem, const S* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem),
+               "n"(sizeof(S)));
+}
 
-  S xc[EM_MAX_NX], xt[EM_MAX_NX], xn[EM_MAX_NX], xr[EM_MAX_NX];
-  S dx[EM_MAX_NDX], u[EM_MAX_NU];
-  for (int i = 0; i < nx; ++i) xc[i] = x0[(size_t)b * nx + i];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  for (int t = 0; t < T; ++t) {
-    const size_t bt = (size_t)b * T + t;
-    if (kp) {
-      const S* f = fs + ((size_t)b * (T + 1) + t) * ndx;
-      for (int i = 0; i < ndx; ++i) dx[i] = f[i] * (alpha - S(1));
-      integrate<S, S>(d, xc, dx, xt);
-    } else {
-      for (int i = 0; i < nx; ++i) xt[i] = xc[i];
-    }
-    const S* xsr = xs + ((size_t)b * (T + 1) + t) * nx;
-    for (int i = 0; i < nx; ++i) xr[i] = xsr[i];
-    state_diff<S, S>(d, xr, xt, dx);
-    for (int i = 0; i < nu; ++i) {
-      S acc = S(0);
-      const S* Krow = Kfb + (bt * nu + i) * ndx;
-      for (int j = 0; j < ndx; ++j) acc = acc + Krow[j] * dx[j];
-      u[i] = us[bt * nu + i] - alpha * kff[bt * nu + i] - acc;
-    }
-    dyn_next<S, S>(d, xt, u, gp, xn);
-    const S* np = node_par + bt * d.node_dim;
-    const size_t lt = (size_t)lane * T + t;
-    cs[lt] = node_cost<S>(d, xt, u, np, gp);
-    for (int i = 0; i < nx; ++i) xs_try[lt * nx + i] = xt[i];
-    for (int i = 0; i < nu; ++i) us_try[lt * nu + i] = u[i];
-    for (int i = 0; i < nx; ++i) xc[i] = xn[i];
-  }
-  for (int i = 0; i < nx; ++i) xn_last[(size_t)lane * nx + i] = xc[i];
+__device__ __forceinline__ void cp_async_wait_prior1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// operand row of node t: [x_t (nx), u_t (nu), k_t (nu), K_t (nu ndx),
+// f_t (ndx), node parameters (node_dim)]
+__host__ __device__ inline int ro_op_len(int nx, int ndx, int nu, int node_dim) {
+  return nx + 2 * nu + nu * ndx + ndx + node_dim;
 }
 
 template <class S>
-static int launch_rollout(const void* desc, int B, int A, int T, const S* xs,
+__device__ __forceinline__ void ro_load_node(const ModelDesc& d, int b, int t, int T,
+                                             const S* xs, const S* us, const S* kff,
+                                             const S* Kfb, const S* fs,
+                                             const S* node_par, S* op) {
+  const int nx = d.nq + d.nv, ndx = 2 * d.nv, nu = d.nu;
+  const size_t bt = (size_t)b * T + t, bt1 = (size_t)b * (T + 1) + t;
+  const S* src[6] = {xs + bt1 * nx, us + bt * nu, kff + bt * nu,
+                     Kfb + bt * nu * ndx, fs + bt1 * ndx, node_par + bt * d.node_dim};
+  const int len[6] = {nx, nu, nu, nu * ndx, ndx, d.node_dim};
+  int off = 0;
+  for (int sg = 0; sg < 6; ++sg) {
+    for (int i = threadIdx.x; i < len[sg]; i += blockDim.x)
+      cp_async_elem(op + off + i, src[sg] + i);
+    off += len[sg];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the serial parts of a step (the group's first thread)
+// ---------------------------------------------------------------------------
+
+// x_try (gap contraction) and the feedback's state error
+template <class S>
+__device__ __noinline__ void ro_gap_and_error(const ModelDesc& d, CoopNode<S>& G, const S* xs_t,
+                                              const S* f_t, S alpha, bool keep) {
+  const int nx = d.nq + d.nv, ndx = 2 * d.nv;
+  if (keep) {
+    for (int i = 0; i < ndx; ++i) G.tmp[i] = f_t[i] * (alpha - S(1));
+    integrate<S, S>(d, G.xc, G.tmp, G.xt);
+  } else {
+    for (int i = 0; i < nx; ++i) G.xt[i] = G.xc[i];
+  }
+  state_diff<S, S>(d, xs_t, G.xt, G.dx);
+}
+
+template <class S>
+__global__ void __launch_bounds__(RO_MAX_THREADS)
+rollout_kernel(const ModelDesc* __restrict__ desc, int B, int A, int T,
+               const S* __restrict__ xs, const S* __restrict__ us,
+               const S* __restrict__ kff, const S* __restrict__ Kfb,
+               const S* __restrict__ fs, const S* __restrict__ x0,
+               const S* __restrict__ alphas, const unsigned char* __restrict__ keep,
+               const S* __restrict__ node_par, const S* __restrict__ glob_par,
+               S* xs_try, S* us_try, S* cs, S* xn_last) {
+  const ModelDesc& d = *desc;
+  const int b = blockIdx.x;
+  const int g = threadIdx.x / RO_G, l = threadIdx.x % RO_G;
+  const int ngroups = blockDim.x / RO_G;
+  const bool real = g < A;
+  const int a = real ? g : A - 1;
+  const int nv = d.nv, nx = d.nq + nv, ndx = 2 * nv, nu = d.nu;
+  const int op_len = ro_op_len(nx, ndx, nu, d.node_dim);
+
+  extern __shared__ unsigned char smem_raw[];
+  CoopNode<S>* groups = reinterpret_cast<CoopNode<S>*>(smem_raw);
+  S* op = reinterpret_cast<S*>(groups + ngroups);   // [2][op_len]
+  S* gp = op + 2 * op_len;                           // [glob_dim]
+  S* cst = gp + d.glob_dim;                          // [ngroups][T]
+  CoopNode<S>& G = groups[g];
+
+  const S alpha = alphas[a];
+  const bool kp = real && keep[(size_t)b * A + a] != 0;
+  const size_t lane = (size_t)b * A + a;
+  for (int i = threadIdx.x; i < d.glob_dim; i += blockDim.x)
+    gp[i] = glob_par[(size_t)b * d.glob_dim + i];
+  for (int i = l; i < nx; i += RO_G) G.xc[i] = x0[(size_t)b * nx + i];
+
+  ro_load_node<S>(d, b, 0, T, xs, us, kff, Kfb, fs, node_par, op);
+  cp_async_commit();
+  for (int t = 0; t < T; ++t) {
+    if (t + 1 < T)
+      ro_load_node<S>(d, b, t + 1, T, xs, us, kff, Kfb, fs, node_par,
+                      op + ((t + 1) & 1) * op_len);
+    cp_async_commit();
+    cp_async_wait_prior1();
+    __syncthreads();
+    const S* xs_t = op + (t & 1) * op_len;
+    const S* us_t = xs_t + nx;
+    const S* k_t = us_t + nu;
+    const S* K_t = k_t + nu;
+    const S* f_t = K_t + nu * ndx;
+    const S* np_t = f_t + ndx;
+
+    if (l == 0) ro_gap_and_error<S>(d, G, xs_t, f_t, alpha, kp);
+    __syncwarp();
+    // feedback law and squash, a control row per thread
+    for (int i = l; i < nu; i += RO_G) {
+      S acc = S(0);
+      const S* Krow = K_t + i * ndx;
+      for (int j = 0; j < ndx; ++j) acc = acc + Krow[j] * G.dx[j];
+      const S ui = us_t[i] - alpha * k_t[i] - acc;
+      G.u[i] = ui;
+      G.usq[i] = control_u<S, S>(d, i, ui, gp);
+    }
+    __syncwarp();
+    if (real) {
+      const size_t lt = lane * T + t;
+      for (int i = l; i < nx; i += RO_G) xs_try[lt * nx + i] = G.xt[i];
+      for (int i = l; i < nu; i += RO_G) us_try[lt * nu + i] = G.u[i];
+    }
+    coop_dyn_next<S, RO_G>(d, l, G, np_t, gp, cst + g * T + t);
+    __syncthreads();
+  }
+  if (real) {
+    for (int t = l; t < T; t += RO_G) cs[lane * T + t] = cst[g * T + t];
+    for (int i = l; i < nx; i += RO_G) xn_last[lane * nx + i] = G.xc[i];
+  }
+}
+
+template <class S>
+static int launch_rollout(const void* desc, const ModelDesc* hd, int B, int A, int T,
+                          const S* xs,
                           const S* us, const S* k, const S* K, const S* fs,
                           const S* x0, const S* alphas, const unsigned char* keep,
                           const S* node_par, const S* glob_par, S* xs_try,
                           S* us_try, S* cs, S* xn_last, void* stream) {
-  const int lanes = B * A;
-  if (lanes > 0)
-    rollout_kernel<S><<<(lanes + RO_THREADS - 1) / RO_THREADS, RO_THREADS, 0,
-                        (cudaStream_t)stream>>>(
+  const int threads = ((A * RO_G + 31) / 32) * 32;
+  if (A < 1 || threads > RO_MAX_THREADS) return (int)cudaErrorInvalidValue;
+  const int ngroups = threads / RO_G;
+  const size_t smem = ngroups * sizeof(CoopNode<S>)
+      + sizeof(S) * ((size_t)2 * ro_op_len(hd->nq + hd->nv, 2 * hd->nv, hd->nu, hd->node_dim)
+                     + hd->glob_dim + (size_t)ngroups * T);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        rollout_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (B > 0 && T > 0)
+    rollout_kernel<S><<<B, threads, smem, (cudaStream_t)stream>>>(
         (const ModelDesc*)desc, B, A, T, xs, us, k, K, fs, x0, alphas, keep,
         node_par, glob_par, xs_try, us_try, cs, xn_last);
   return (int)cudaGetLastError();
@@ -96,26 +212,26 @@ static int launch_rollout(const void* desc, int B, int A, int T, const S* xs,
 
 extern "C" {
 
-int eagle_rollout_f32(const void* desc, int B, int A, int T, const float* xs,
+int eagle_rollout_f32(const void* desc, const void* host_desc, int B, int A, int T,
+                      const float* xs,
                       const float* us, const float* k, const float* K,
                       const float* fs, const float* x0, const float* alphas,
                       const unsigned char* keep, const float* node_par,
                       const float* glob_par, float* xs_try, float* us_try,
                       float* cs, float* xn_last, void* stream) {
-  return launch_rollout<float>(desc, B, A, T, xs, us, k, K, fs, x0, alphas,
-                               keep, node_par, glob_par, xs_try, us_try, cs,
-                               xn_last, stream);
+  return launch_rollout<float>(desc, (const ModelDesc*)host_desc, B, A, T, xs, us, k, K, fs, x0, alphas, keep, node_par,
+                               glob_par, xs_try, us_try, cs, xn_last, stream);
 }
 
-int eagle_rollout_f64(const void* desc, int B, int A, int T, const double* xs,
+int eagle_rollout_f64(const void* desc, const void* host_desc, int B, int A, int T,
+                      const double* xs,
                       const double* us, const double* k, const double* K,
                       const double* fs, const double* x0, const double* alphas,
                       const unsigned char* keep, const double* node_par,
                       const double* glob_par, double* xs_try, double* us_try,
                       double* cs, double* xn_last, void* stream) {
-  return launch_rollout<double>(desc, B, A, T, xs, us, k, K, fs, x0, alphas,
-                                keep, node_par, glob_par, xs_try, us_try, cs,
-                                xn_last, stream);
+  return launch_rollout<double>(desc, (const ModelDesc*)host_desc, B, A, T, xs, us, k, K, fs, x0, alphas, keep, node_par,
+                                glob_par, xs_try, us_try, cs, xn_last, stream);
 }
 
 }  // extern "C"

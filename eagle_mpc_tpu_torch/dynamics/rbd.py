@@ -2,8 +2,8 @@
 
 PyTorch counterpart of the free-dynamics part of
 ``eagle_mpc_tpu.dynamics.rbd`` (contacts and frame kinematics come later).
-The kinematic tree is the jax-free ``RobotModel`` of the reference package;
-its constants are turned into tensors once per (model, device, dtype).
+The kinematic tree is the port's ``RobotModel`` (``dynamics.model``); its
+constants are turned into tensors once per (model, device, dtype).
 Every function takes (..., nq) / (..., nv) tensors with any leading batch
 shape; the per-joint loops run in Python over the static tree.
 
@@ -20,10 +20,9 @@ from typing import List, NamedTuple
 
 import torch
 
-from eagle_mpc_tpu.dynamics.model import PRISMATIC, REVOLUTE, RobotModel
-
 from ..ops import smallmat
 from . import lie, spatial
+from .model import PRISMATIC, REVOLUTE, RobotModel
 
 
 class ModelTensors(NamedTuple):

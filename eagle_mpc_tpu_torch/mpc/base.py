@@ -15,8 +15,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from eagle_mpc_tpu.config import specs as cspecs
-
+from ..config import specs as cspecs
 from ..ocp import actuation as act
 from ..ocp import costs as C
 from ..ocp import problem as P

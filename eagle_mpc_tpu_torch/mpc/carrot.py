@@ -17,8 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from eagle_mpc_tpu.config import specs as cspecs
-
+from ..config import specs as cspecs
 from ..dynamics.state import State
 from ..ocp import costs as C
 from ..ocp import problem as P

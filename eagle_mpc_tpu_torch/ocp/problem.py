@@ -23,9 +23,8 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.autograd.forward_ad as fwAD
 
-from eagle_mpc_tpu.dynamics.model import RobotModel
-
 from ..dynamics import rbd
+from ..dynamics.model import RobotModel
 from ..dynamics.state import State
 from . import actuation as act
 from . import costs as C

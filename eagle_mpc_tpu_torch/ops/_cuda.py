@@ -1,8 +1,9 @@
 """Build, load and feed the hand-written Hopper kernels (csrc/*.cu).
 
-The kernels are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface and bound with ``ctypes``. The build runs
-on first use, into ``csrc/build/``, keyed by a hash of the sources and the
+The kernels are compiled with ``nvcc`` for ``sm_90a``, one compiler
+process per source, all started together, and linked into one shared
+library with a plain C interface, bound with ``ctypes``. The build runs on
+first use, into ``csrc/build/``, keyed by a hash of the sources and the
 flags; nothing is built or imported while this module is imported.
 
 The robot is not compiled into the kernels: each problem spec is packed
@@ -25,8 +26,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from eagle_mpc_tpu.dynamics.model import REVOLUTE
-
+from ..dynamics.model import REVOLUTE
 from ..ocp import costs as C
 from ..ocp import problem as P
 
@@ -34,8 +34,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("node.cu", "riccati.cu", "rollout.cu")
 HEADERS = ("dual.cuh", "model.cuh")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # compile-time maxima of csrc/model.cuh
 MAX_NJ = 6
@@ -102,15 +102,30 @@ def build(verbose: bool = False) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [tmp.with_name(f"{Path(s).stem}_{tmp.name}.o") for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    results = []
+    for c, p in zip(cmds, procs):
+        out, err = p.communicate()
+        results.append((c, p.returncode, out, err))
+    link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    if all(r[1] == 0 for r in results):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, proc.returncode, proc.stdout, proc.stderr))
     log = lib.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}); see {log}:\n"
-                           + proc.stderr[-4000:])
+    log.write_text("".join(" ".join(c) + "\n" + out + err
+                           for c, _, out, err in results))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [r for r in results if r[1] != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0][1]}); see {log}:\n"
+                           + "".join(r[3] for r in failed)[-4000:])
     os.replace(tmp, lib)
     if verbose:
         print(f"built {lib.name} in {time.time() - t0:.1f} s", flush=True)
@@ -132,13 +147,13 @@ def library() -> ctypes.CDLL:
     for prec, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
         fn = getattr(lib, f"eagle_node_{prec}")
         fn.restype = _I
-        fn.argtypes = [_P, _I, _I, _I, _I, _I] + [_P] * 13 + [_P]
+        fn.argtypes = [_P, _P, _I, _I] + [_P] * 13 + [_P]
         fn = getattr(lib, f"eagle_riccati_{prec}")
         fn.restype = _I
         fn.argtypes = [_I, _I, _I, _I, real] + [_P] * 13 + [_P] * 6 + [_P]
         fn = getattr(lib, f"eagle_rollout_{prec}")
         fn.restype = _I
-        fn.argtypes = [_P, _I, _I, _I] + [_P] * 10 + [_P] * 4 + [_P]
+        fn.argtypes = [_P, _P, _I, _I, _I] + [_P] * 10 + [_P] * 4 + [_P]
     return lib
 
 
@@ -221,10 +236,24 @@ def make_descriptor(spec: P.ProblemSpec) -> ModelDesc:
 
 
 @functools.lru_cache(maxsize=32)
+def host_descriptor(spec: P.ProblemSpec) -> ModelDesc:
+    """The spec's ModelDesc on the host (kept for reuse): the launchers
+    size their shared memory from it."""
+    return make_descriptor(spec)
+
+
+@functools.lru_cache(maxsize=32)
 def descriptor(spec: P.ProblemSpec, device) -> torch.Tensor:
     """The spec's ModelDesc as bytes on ``device`` (kept for reuse)."""
-    raw = bytes(make_descriptor(spec))
+    raw = bytes(host_descriptor(spec))
     return torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)
+
+
+def descriptor_args(spec: P.ProblemSpec, device):
+    """(device pointer, host pointer) of the spec's ModelDesc, the first
+    two arguments of the node and rollout launchers; both stay cached."""
+    return (descriptor(spec, device).data_ptr(),
+            ctypes.addressof(host_descriptor(spec)))
 
 
 def pack_params(spec: P.ProblemSpec, params: P.ProblemParams, dtype, device):

@@ -36,22 +36,19 @@ def calc_diff_running(spec: P.ProblemSpec, params: P.ProblemParams,
         return calc_diff_running_plain(spec, params, xs, us)
     global LAUNCHES
     _cuda.require_cuda(xs)
-    desc = _cuda.descriptor(spec, xs.device)
     B, T = us.shape[0], spec.T
     nx, nu, ndx = spec.model.nx, spec.nu, spec.state.ndx
     x = xs[:, :T].contiguous()
     _cuda.check_tensor(x, "xs", (B, T, nx), xs.dtype, xs.device)
     _cuda.check_tensor(us, "us", (B, T, nu), xs.dtype, xs.device)
     node_rows, glob_rows = _cuda.pack_params(spec, params, xs.dtype, xs.device)
-    n_res = sum(s.nr for s in spec.slots)
-    nz = ndx + nu
     e = lambda *shape: torch.empty((B, T) + shape, dtype=xs.dtype,
                                    device=xs.device)
     out = P.NodeDerivatives(cost=e(), xnext=e(nx), Fx=e(ndx, ndx), Fu=e(ndx, nu),
                             Lx=e(ndx), Lu=e(nu), Lxx=e(ndx, ndx),
                             Lxu=e(ndx, nu), Luu=e(nu, nu))
-    _cuda.call("eagle_node", xs.dtype, desc.data_ptr(), B * T, T, nz,
-               ndx + n_res, n_res,
+    _cuda.call("eagle_node", xs.dtype, *_cuda.descriptor_args(spec, xs.device),
+               B * T, T,
                *(a.data_ptr() for a in (x, us, node_rows, glob_rows) + out))
     LAUNCHES += 1
     return out

@@ -55,7 +55,6 @@ def rollout(spec: P.ProblemSpec, params: P.ProblemParams, xs, us, k, K, fs,
         return rollout_plain(spec, params, xs, us, k, K, fs, alphas, keep)
     global LAUNCHES
     _cuda.require_cuda(xs)
-    desc = _cuda.descriptor(spec, xs.device)
     B, A = keep.shape
     T, nx, nu, ndx = spec.T, spec.model.nx, spec.nu, spec.state.ndx
     dt, dev = xs.dtype, xs.device
@@ -71,7 +70,7 @@ def rollout(spec: P.ProblemSpec, params: P.ProblemParams, xs, us, k, K, fs,
     _cuda.check_tensor(keep8, "keep", (B, A), torch.uint8, dev)
     e = lambda *shape: torch.empty((B, A) + shape, dtype=dt, device=dev)
     out = (e(T, nx), e(T, nu), e(T), e(nx))
-    _cuda.call("eagle_rollout", dt, desc.data_ptr(), B, A, T,
+    _cuda.call("eagle_rollout", dt, *_cuda.descriptor_args(spec, dev), B, A, T,
                *(a.data_ptr() for a in [t for t, _, _ in ins]
                  + [keep8, node_rows, glob_rows, *out]))
     LAUNCHES += 1

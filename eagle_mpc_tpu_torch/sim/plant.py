@@ -8,10 +8,9 @@ import dataclasses
 
 import torch
 
-from eagle_mpc_tpu.config import specs as cspecs
-from eagle_mpc_tpu.dynamics.model import RobotModel
-
+from ..config import specs as cspecs
 from ..dynamics import rbd
+from ..dynamics.model import RobotModel
 from ..dynamics.state import State
 from ..ocp import actuation as act
 

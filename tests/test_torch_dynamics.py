@@ -15,6 +15,7 @@ from eagle_mpc_tpu.dynamics import lie as jlie
 from eagle_mpc_tpu.dynamics import rbd as jrbd
 from eagle_mpc_tpu.dynamics import spatial as jspatial
 from eagle_mpc_tpu.dynamics.state import State as JState
+from eagle_mpc_tpu_torch import convert
 from eagle_mpc_tpu_torch.dynamics import lie, rbd, spatial
 from eagle_mpc_tpu_torch.dynamics.state import State
 from eagle_mpc_tpu_torch.ops import smallmat
@@ -112,7 +113,8 @@ def test_state_manifold(robot):
 
 @pytest.mark.parametrize("robot", ["hexacopter370_flying_arm_3", "iris"])
 def test_rigid_body_dynamics(robot):
-    model = load(robot, MISSION[robot])[1].model
+    jmodel = load(robot, MISSION[robot])[1].model
+    model = convert.model_from_jax(jmodel)
     nq = model.nq
     x = rand_states(model, 4, 5)
     rng = np.random.default_rng(6)
@@ -120,12 +122,12 @@ def test_rigid_body_dynamics(robot):
     for i in range(x.shape[0]):
         q, v = x[i, :nq], x[i, nq:]
         pairs = [
-            (jrbd.rnea(model, jnp.asarray(q), jnp.asarray(v), jnp.asarray(a[i])),
+            (jrbd.rnea(jmodel, jnp.asarray(q), jnp.asarray(v), jnp.asarray(a[i])),
              rbd.rnea(model, t(q), t(v), t(a[i]))),
-            (jrbd.bias_force(model, jnp.asarray(q), jnp.asarray(v)),
+            (jrbd.bias_force(jmodel, jnp.asarray(q), jnp.asarray(v)),
              rbd.bias_force(model, t(q), t(v))),
-            (jrbd.crba(model, jnp.asarray(q)), rbd.crba(model, t(q))),
-            (jrbd.fwd_dynamics(model, jnp.asarray(q), jnp.asarray(v),
+            (jrbd.crba(jmodel, jnp.asarray(q)), rbd.crba(model, t(q))),
+            (jrbd.fwd_dynamics(jmodel, jnp.asarray(q), jnp.asarray(v),
                                jnp.asarray(tau[i])),
              rbd.fwd_dynamics(model, t(q), t(v), t(tau[i]))),
         ]
@@ -134,7 +136,7 @@ def test_rigid_body_dynamics(robot):
     # batched call = per-state calls
     got = rbd.fwd_dynamics(model, t(x[:, :nq]), t(x[:, nq:]), t(tau))
     for i in range(x.shape[0]):
-        want = jrbd.fwd_dynamics(model, jnp.asarray(x[i, :nq]),
+        want = jrbd.fwd_dynamics(jmodel, jnp.asarray(x[i, :nq]),
                                  jnp.asarray(x[i, nq:]), jnp.asarray(tau[i]))
         assert rel_err(want, got[i]) < 1e-12
 

@@ -14,7 +14,7 @@ from eagle_mpc_tpu_torch import convert
 from eagle_mpc_tpu_torch.ocp import problem as P
 from eagle_mpc_tpu_torch.sim import AerialSimulator
 
-from torch_port_util import CPU, F64, controllers, load, rand_states, t
+from torch_port_util import CPU, F64, controllers, load, load_port, rand_states, t
 
 
 @pytest.fixture(scope="module")
@@ -57,9 +57,10 @@ def test_update_problem_matches_jax(ctrls, t_ms):
 
 
 def test_sim_step_matches_jax():
-    traj, mp = load("hexacopter370_flying_arm_3")
+    mp = load("hexacopter370_flying_arm_3")[1]
+    tmp = load_port("hexacopter370_flying_arm_3")[1]
     jsim = JaxSimulator.from_platform(mp.model, mp.platform, dt_ms=2)
-    tsim = AerialSimulator.from_platform(mp.model, mp.platform, 2,
+    tsim = AerialSimulator.from_platform(tmp.model, tmp.platform, 2,
                                          device=CPU, dtype=F64)
     x = rand_states(mp.model, 4, 11)
     u = np.random.default_rng(12).uniform(0.0, 5.0, size=(4, mp.platform.nu))

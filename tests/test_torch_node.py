@@ -1,5 +1,6 @@
 """Node linearization (kernel K1's plain version) against the JAX package,
-and the CUDA wrappers' dispatch and scope rules.
+the structure kernel K1 rests on, and the CUDA wrappers' dispatch and
+scope rules.
 
 The port's ``calc_diff_all`` on the CPU runs ``problem.node_calc_diff``
 over the flattened nodes; it is held against the JAX package's XLA path
@@ -17,6 +18,8 @@ import pytest
 import torch
 
 from eagle_mpc_tpu.ocp import problem as JP
+from eagle_mpc_tpu_torch.dynamics import rbd
+from eagle_mpc_tpu_torch.ocp import actuation as act
 from eagle_mpc_tpu_torch.ocp import costs as C
 from eagle_mpc_tpu_torch.ocp import problem as P
 from eagle_mpc_tpu_torch.ops import _cuda, node_cuda, riccati_cuda, rollout_cuda
@@ -50,6 +53,52 @@ def test_calc_diff_all_matches_jax(ctrls):
         assert rel_err(getattr(want, name), getattr(got, name)) < TOL, name
     for a, b in zip(want_term, got_term):
         assert rel_err(a, b) < TOL
+
+
+def test_dynamics_jacobian_by_implicit_function(ctrls):
+    """The identity kernel K1 differentiates the dynamics by:
+    RNEA(x (+) z, a(z)) = tau(s + dz) along z = (dx, ds), so
+    da/dz = M^-1 (dtau/dz - dRNEA(x (+) z, a)/dz with a held). Checked
+    against forward-mode AD of rbd.fwd_dynamics at flagship candidate
+    states, float64, to 1e-10 relative."""
+    spec = ctrls[1].spec
+    glob = ctrls[1].params0.glob
+    st, model, nq, ndx = spec.state, spec.model, spec.model.nq, spec.state.ndx
+    xs, us = candidates(spec, ctrls[0].params0.x0, 2, seed=3)
+    x, s = t(xs[:, :3].reshape(-1, model.nx)), t(us[:, :3].reshape(-1, spec.nu))
+    tau_f = P.tau_f_tensor(spec, x.device, x.dtype)
+
+    def tau(z):
+        return act.actuation_tau(tau_f, P.squash(spec, glob, s + z[..., ndx:]))
+
+    def accel(z):
+        xx = st.integrate(x, z[..., :ndx])
+        return rbd.fwd_dynamics(model, xx[..., :nq], xx[..., nq:], tau(z))
+
+    z0 = torch.zeros(x.shape[0], ndx + spec.nu, dtype=torch.float64)
+    a0, want = P._jacobian(accel, z0)
+
+    def rnea_held(z):
+        xx = st.integrate(x, z[..., :ndx])
+        return rbd.rnea(model, xx[..., :nq], xx[..., nq:], a0)
+
+    dtau = P._jacobian(tau, z0)[1]
+    drnea = P._jacobian(rnea_held, z0)[1]
+    got = torch.linalg.solve(rbd.crba(model, x[..., :nq]), dtau - drnea)
+    assert rel_err(want.numpy(), got) < TOL
+
+
+def test_lxu_is_zero_for_state_and_control_slots(ctrls):
+    """STATE residuals depend on x alone and CONTROL residuals on s alone,
+    so the Gauss-Newton cross term Lxu is exactly zero (kernel K1 writes
+    zeros); the plain path agrees."""
+    tc = ctrls[1]
+    xs, us = candidates(tc.spec, ctrls[0].params0.x0, 1, seed=2)
+    params = tc.update_problem(t([3500.0]), P.expand_params(tc.params0, 1)
+                               ._replace(x0=t(xs[:, 0])))
+    d = node_cuda.calc_diff_running_plain(tc.spec, params, t(xs), t(us))
+    assert float(d.Lxu.abs().max()) <= 1e-14
+    assert float(d.Lxx.abs().max()) > 0 and float(d.Luu.abs().max()) > 0
 
 
 def test_total_cost_matches_jax(ctrls):

@@ -25,7 +25,7 @@ from eagle_mpc_tpu_torch.ocp import problem as P
 from eagle_mpc_tpu_torch.sim import AerialSimulator
 from eagle_mpc_tpu_torch.solvers import sbfddp
 
-from torch_port_util import CPU, F64, FIXTURE, controllers, load, t
+from torch_port_util import CPU, F64, FIXTURE, controllers, load_port, t
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -33,7 +33,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(scope="module")
 def setup():
     tc = controllers()[1]
-    mp = load("hexacopter370_flying_arm_3")[1]
+    mp = load_port("hexacopter370_flying_arm_3")[1]
     sim = AerialSimulator.from_platform(mp.model, mp.platform, 2, device=CPU,
                                         dtype=F64)
     return tc, sim, np.load(FIXTURE)
@@ -77,15 +77,14 @@ def test_tick_matches_jax(setup):
 
 def test_port_runs_without_jax():
     """Importing the port, building the flagship controller and running one
-    CPU tick at B=2 never imports jax."""
+    CPU tick at B=2 never imports jax, the JAX package or ``tools``."""
     code = """
 import sys, torch
-from eagle_mpc_tpu_torch.config import load_mpc_params, load_trajectory
+from eagle_mpc_tpu_torch.config import load_mpc_params, load_ref, load_trajectory
 from eagle_mpc_tpu_torch.mpc import CarrotMpc
 from eagle_mpc_tpu_torch.ocp import problem as P
 from eagle_mpc_tpu_torch.sim import AerialSimulator
 from eagle_mpc_tpu_torch.solvers import fddp
-from tools.make_ref import load_ref
 R = "hexacopter370_flying_arm_3"
 traj = load_trajectory(f"{R}/trajectories/displacement.yaml", yaml_dir="missions")
 mp = load_mpc_params(f"{R}/mpc/mpc.yaml", yaml_dir="missions")
@@ -101,7 +100,10 @@ xs, us = fddp.default_init(ctrl.spec, params)
 res = ctrl.solve(params, xs, us)
 x_next = sim.step(x0, res.us_squash[:, 0])
 assert torch.isfinite(x_next).all() and torch.isfinite(res.cost).all()
-assert "jax" not in sys.modules, "the port imported jax"
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "eagle_mpc_tpu", "tools")
+             or m.startswith(("jax.", "eagle_mpc_tpu.", "tools.")))
+assert not bad, f"the port imported {bad}"
 print("ok")
 """
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA")}
@@ -130,7 +132,7 @@ def test_kernels_match_plain_on_cuda():
     params, xs, us, feas = chip_smoke.parity_inputs(ctrl, state, dev,
                                                     torch.float64)
     calls = chip_smoke.kernel_calls(ctrl, params, xs, us, feas, reg=1e-2)
-    for name, (kern, plain) in calls.items():
+    for name, (kern, plain, _, _) in calls.items():
         got, want = kern(), plain()
         if name == "alpha_rollout":
             lanes = chip_smoke._healthy_lanes(want)

@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 from eagle_mpc_tpu.config import specs
+from eagle_mpc_tpu_torch import config as port_config
 
 MISSIONS = os.path.join(os.path.dirname(__file__), "..", "missions")
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
@@ -17,17 +18,21 @@ CPU = torch.device("cpu")
 F64 = torch.float64
 
 
-def load(robot, mission="displacement"):
-    traj = specs.load_trajectory(f"{robot}/trajectories/{mission}.yaml",
-                                 yaml_dir=MISSIONS)
-    mp = specs.load_mpc_params(f"{robot}/mpc/mpc.yaml", yaml_dir=MISSIONS)
+def load(robot, mission="displacement", loader=specs):
+    """(trajectory, mpc params) through ``loader``: the JAX package's
+    ``specs`` (default) or the port's ``config``."""
+    traj = loader.load_trajectory(f"{robot}/trajectories/{mission}.yaml",
+                                  yaml_dir=MISSIONS)
+    mp = loader.load_mpc_params(f"{robot}/mpc/mpc.yaml", yaml_dir=MISSIONS)
     return traj, mp
 
 
-def flagship_ref(traj):
-    from tools.make_ref import load_ref
+def load_port(robot, mission="displacement"):
+    return load(robot, mission, loader=port_config)
 
-    return load_ref(FLAGSHIP, "displacement", DT_REF, traj=traj)[0]
+
+def flagship_ref(traj):
+    return port_config.load_ref(FLAGSHIP, "displacement", DT_REF, traj=traj)[0]
 
 
 def controllers(robot=FLAGSHIP, mission="displacement", ref=None):
@@ -36,11 +41,12 @@ def controllers(robot=FLAGSHIP, mission="displacement", ref=None):
     from eagle_mpc_tpu_torch.mpc import CarrotMpc
 
     traj, mp = load(robot, mission)
+    ttraj, tmp = load_port(robot, mission)
     if ref is None:
-        ref = flagship_ref(traj)
+        ref = flagship_ref(ttraj)
     jc = JaxCarrot(mpc_params=mp, trajectory=traj, state_ref=ref,
                    dt_ref=DT_REF)
-    tc = CarrotMpc(mpc_params=mp, trajectory=traj, state_ref=ref,
+    tc = CarrotMpc(mpc_params=tmp, trajectory=ttraj, state_ref=ref,
                    dt_ref=DT_REF, device=CPU, dtype=F64)
     return jc, tc
 
