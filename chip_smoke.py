@@ -25,6 +25,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    (inputs read once, outputs written once) over the card's memory rate
    and its dense products' operations over the f32 rate (no single
    PyTorch call computes any of the three, so there is no library time);
+   K3 also on a ragged batch (the first B-3 scenarios) and with an
+   indefinite Quu on every 64th scenario (equal per-scenario failures);
 5. reference: the float64 tick and warm start at B=2 through the kernels
    against the JAX package's fixture (tests/fixtures/torch_port_flagship.npz).
 
@@ -138,6 +140,40 @@ def initial_batch(ctrl, ref, hover, n_rot, B, t_ms, device, dtype):
     us = torch.zeros(B, T, nu, device=device, dtype=dtype)
     us[:, :, :n_rot] = hover
     return x0, xs, us
+
+
+def warm_start(ctrl, t_ms, x0, xs, us):
+    """The bench's warm start: a depth-WARM_DEPTH fixed solve from (xs, us)
+    at t_ms with the plant states x0 (B, nx)."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.solvers import sbfddp
+
+    B = x0.shape[0]
+    params = ctrl.update_problem(
+        torch.full((B,), t_ms, device=x0.device, dtype=x0.dtype),
+        P.expand_params(ctrl.params0, B)._replace(x0=x0))
+    return sbfddp.solve_fixed(ctrl.spec, params, xs, us, depth=WARM_DEPTH,
+                              polish="fixed")
+
+
+def tick(ctrl, sim, t_ms, xb, xs, us):
+    """One closed-loop tick of the bench: update the problem at t_ms from
+    the plant states xb (B, nx), solve from the candidates (xs, us) and
+    step the plant with the first control. Returns (the solve's result,
+    the next plant states)."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+
+    B = xb.shape[0]
+    params = ctrl.update_problem(
+        torch.full((B,), t_ms, device=xb.device, dtype=xb.dtype),
+        P.expand_params(ctrl.params0, B)._replace(x0=xb))
+    r = ctrl.solve(params, xs, us, n_alphas=10, polish="while_fixed",
+                   polish_maxiter=1)
+    return r, sim.step(xb, r.us_squash[:, 0])
 
 
 def parity_inputs(ctrl, state, device, dtype):
@@ -269,6 +305,48 @@ def kernel_calls(ctrl, params, xs, us, feasible, reg):
     }
 
 
+def riccati_cases(bargs, n_ragged, every):
+    """K3 against its plain version on the cases its problems-per-block
+    design can break: (a) "ragged", the first ``n_ragged`` scenarios, an odd
+    count, so the last block is ragged for any even number of problems per
+    block (the launcher fits 4 at the flagship in both types); (b)
+    "indefinite", ureg = -1e3 on every ``every``-th scenario, whose Quu is
+    then indefinite: the per-scenario ok pattern (k, K and Vx all finite,
+    as ``fddp._backward_pass`` reads it) must be equal, and the values are
+    compared on the ok scenarios. Returns {case: (max abs error, max
+    relative error, ok scenarios, scenarios)}."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ops import riccati_cuda
+
+    def ok_of(out):
+        k, K, _, _, Vx, _ = out
+        return (torch.isfinite(k).flatten(1).all(1)
+                & torch.isfinite(K).flatten(1).all(1)
+                & torch.isfinite(Vx).flatten(1).all(1))
+
+    B = bargs[0].shape[0]
+    check(n_ragged % 2 == 1, f"{n_ragged} scenarios: not an odd count")
+    bad = torch.arange(B, device=bargs[0].device) % every == every - 1
+    ureg = torch.where(bad, torch.full_like(bargs[11], -1e3), bargs[11])
+    cases = {"ragged": tuple(a[:n_ragged].contiguous() for a in bargs),
+             "indefinite": bargs[:11] + (ureg,) + bargs[12:]}
+    out = {}
+    for name, args in cases.items():
+        got = riccati_cuda.backward(*args)
+        want = riccati_cuda.backward_plain(*args)
+        ok = ok_of(want)
+        check(torch.equal(ok, ok_of(got)), f"riccati_backward {name}: kernel "
+              "and plain version disagree on which scenarios fail")
+        if name == "indefinite":
+            check(not bool(ok[bad].any()), "riccati_backward: ureg = -1e3 left "
+                  "a scenario's Quu positive definite")
+        errs = [_err(w[ok], g[ok]) for w, g in zip(want, got)]
+        out[name] = (max(e[0] for e in errs), max(e[1] for e in errs),
+                     int(ok.sum()), ok.numel())
+    return out
+
+
 def bound_ms(inputs, outputs, flops):
     """(least time in ms, what sets it): bytes moved (each input read once,
     each output written once) over the memory rate, or the operations over
@@ -318,6 +396,14 @@ def phase_parity(device, state):
                 check(rel_err <= PARITY_RTOL,
                       f"{name}: kernel differs from its plain version "
                       f"({rel_err:.3e} > {PARITY_RTOL:g})")
+                if name == "riccati_backward":
+                    cases = riccati_cases(ins, n_ragged=BATCH - 3, every=64)
+                    for case, (a, rel, n_ok, n) in cases.items():
+                        say(f"parity f64 {name} {case}: {n_ok} of {n} "
+                            f"scenarios ok in both, max abs {a:.3e}, max rel "
+                            f"{rel:.3e} (gate {PARITY_RTOL:g})")
+                        check(rel <= PARITY_RTOL, f"{name} {case}: kernel "
+                              f"differs from its plain version ({rel:.3e})")
             else:
                 say(f"parity f32 {name}: max abs {abs_err:.3e}, "
                     f"max rel {rel_err:.3e}")
@@ -392,15 +478,12 @@ def _ref_pos(ref, t_ms):
 def phase_main(device):
     import torch
 
-    from eagle_mpc_tpu_torch.ocp import problem as P
     from eagle_mpc_tpu_torch.ops import node_cuda, riccati_cuda, rollout_cuda
-    from eagle_mpc_tpu_torch.solvers import sbfddp
 
     mods = {"node_linearization": node_cuda, "riccati_backward": riccati_cuda,
             "alpha_rollout": rollout_cuda}
     dtype = torch.float32
     ctrl, sim, ref, hover, n_rot = flagship(device, dtype)
-    spec = ctrl.spec
     B = BATCH
     t_warm = T0 - TICKS * DT_SIM
     x0, xs, us = initial_batch(ctrl, ref, hover, n_rot, B, t_warm, device,
@@ -409,12 +492,7 @@ def phase_main(device):
     def chunk(t_ms, xb, xs, us):
         costs, feas = [], []
         for _ in range(TICKS):
-            params = ctrl.update_problem(
-                torch.full((B,), t_ms, device=device, dtype=dtype),
-                P.expand_params(ctrl.params0, B)._replace(x0=xb))
-            r = ctrl.solve(params, xs, us, n_alphas=10, polish="while_fixed",
-                           polish_maxiter=1)
-            xb = sim.step(xb, r.us_squash[:, 0])
+            r, xb = tick(ctrl, sim, t_ms, xb, xs, us)
             xs, us = r.xs, r.us
             costs.append(r.cost.mean())
             feas.append(r.feasible.to(dtype).mean())
@@ -426,11 +504,7 @@ def phase_main(device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t_start = time.time()
-    params = ctrl.update_problem(
-        torch.full((B,), t_warm, device=device, dtype=dtype),
-        P.expand_params(ctrl.params0, B)._replace(x0=x0))
-    w = sbfddp.solve_fixed(spec, params, xs, us, depth=WARM_DEPTH,
-                           polish="fixed")
+    w = warm_start(ctrl, t_warm, x0, xs, us)
     torch.cuda.synchronize()
     warm_s = time.time() - t_start
     say(f"warm start f32 B={B}: {warm_s:.3f} s, feasible "

@@ -14,7 +14,7 @@
 // group of threads of one warp splits the step (rollout.cu: 8 threads per
 // alpha lane; node.cu: the node's warp, for its primal). It runs the
 // pieces above it, which the per-thread code (K1's tangents and dual
-// columns, K3's Cholesky) calls too.
+// columns) calls too.
 //
 // The larger functions are __noinline__. Fully inlined into the node
 // kernel (255 registers, a 12 KB frame per thread in float64), nvcc 12.8
@@ -494,23 +494,6 @@ __device__ __forceinline__ void crba_joint_column(const ModelDesc& d, int j, con
   }
 }
 
-// in place: M (lower triangle) -> Cholesky factor L; NaN when not PD
-template <class S, class V>
-__device__ __noinline__ void cholesky(V* M, int n, int stride) {
-  for (int j = 0; j < n; ++j) {
-    V acc = M[stride * j + j];
-    for (int k = 0; k < j; ++k) acc = acc - M[stride * j + k] * M[stride * j + k];
-    V dj = vsqrt(acc);
-    M[stride * j + j] = dj;
-    V inv_d = S(1) / dj;
-    for (int i = j + 1; i < n; ++i) {
-      V a = M[stride * i + j];
-      for (int k = 0; k < j; ++k) a = a - M[stride * i + k] * M[stride * j + k];
-      M[stride * i + j] = a * inv_d;
-    }
-  }
-}
-
 // in place: b -> (L L^T)^{-1} b
 template <class V>
 __device__ __noinline__ void chol_solve(const V* L, int n, int stride, V* b) {
@@ -755,8 +738,8 @@ __device__ __forceinline__ void coop_dyn_next(const ModelDesc& d, int l, CoopNod
   __syncwarp();
   for (int j = l; j < nj; j += G) crba_joint_column<S, S>(d, j, W.k, W.Ic, W.M);
   __syncwarp();
-  // cholesky() above, right-looking with a barrier per column (the same
-  // operations in the same order): each thread takes the pivot, writes
+  // Cholesky factor of M (NaN when not PD), right-looking with a barrier
+  // per column: each thread takes the pivot, writes
   // column j of the factor transposed into the upper triangle (the pivot
   // into tmp) and subtracts its products from the trailing lower triangle;
   // then the factor moves to the lower triangle

@@ -7,191 +7,486 @@
 //   Qx = Lx + Fx'Vx, Qu = Lu + Fu'Vx, Qxx = Lxx + Fx'VxxFx,
 //   Qux = Lxu' + Fu'VxxFx, Quu = Luu + Fu'VxxFu + (ureg + 100 eps max|diag|) I,
 //   Cholesky of Quu -> k = Quu^-1 Qu, K = Quu^-1 Qux, Quuk = Quu k,
-//   Vx = Qx + K'Quuk - 2 K'Qu (+ Vxx f when infeasible),
-//   Vxx = sym(Qxx - Qux'K) + xreg I,
-// in the order of operations of the TPU kernel. A Quu that is not positive
-// definite gives NaN (sqrt of a negative), which the solver reads as a
-// failed pass.
+//   Vx = Qx + K'Quuk - 2 K'Qu (+ Vxx f with the new Vxx when infeasible),
+//   Vxx = sym(Qxx - Qux'K) + xreg I.
+// A Quu that is not positive definite gives NaN (the square root of a
+// negative pivot), which flows into k, K and Vx; the solver reads it as a
+// failed pass. Nothing clamps or guards the pivot.
 //
-// Design: one thread block (128 threads) per problem; the value function,
-// the node's Fx/Fu and every Q term live in shared memory (~36 KB in f64
-// at the compile-time maxima), the threads share out the entries of each
-// small product, thread 0 factors Quu (nu <= 12) and one thread per column
-// solves for K.
+// What bounds it on an H100: latency. The bytes (every operand read once,
+// every output written once: 97 MB in f32 at B=512, T=29) would take
+// 0.029 ms at 3.35 TB/s; the work is 29 dependent nodes per problem, each
+// a chain of small products (about 40 kFLOP), a 9-column factor and two
+// triangular solves, and 512 problems put only about 4 on each SM. Tensor
+// cores are not the lever: the main path stays in full f32 (TF32 off), the
+// products are 18 x 18 x 27 inside a sequential recursion, and a wgmma
+// tile would be mostly padding.
 //
-// What bounds it on an H100: latency. The T steps are sequential and each
-// is a chain of dependent small products with a barrier between them;
-// 512 problems fill 512 blocks on 132 SMs, so the card is far from busy.
-// A later PR can put several problems in one block or use warp-level
-// products.
+// Design, against the latency of one node:
+// - A problem per group of four warps, up to RC_MAX_PPB problems per
+//   block (the launcher fits as many as the device's shared memory per
+//   block takes: rc_layout gives one problem's bytes). Warp w of a block
+//   serves problem w % ppb, so the problems' first warps sit on different
+//   schedulers. Each group synchronizes on its own named barrier
+//   (bar.sync 1 + problem), never on the block; the groups of a ragged
+//   last block exit.
+// - The node operands (Fx, Fu, Lxx, Lxu, Luu, Lx, Lu, f: 1098 values at the
+//   flagship) are copied into shared memory with cp.async one node ahead,
+//   double-buffered, as Z = [Fx Fu] and [[Lxx, .], [Lxu', Luu]]: the other
+//   warps issue node t-1's copies while the first warp factors node t, and
+//   no phase reads an operand from device memory.
+// - One product, then one triangle: [G; q'] = [Vxx Vx]'Z ((ndx+1) x nz),
+//   then the lower triangle of Z'G, which holds Qxx, Qux and Quu. This
+//   relies on Vxx being symmetric on entry (G = Vxx'Z is read as Vxx Z, and
+//   the upper triangle of Z'VxxZ as the mirror of the lower): the terminal
+//   VxxT = LxxT + xreg I with LxxT a Gauss-Newton product R'WR, and every
+//   node writes the lower triangle of sym(Qxx) - Qux'K to both halves.
+// - Every product is split into register tiles, one per thread: each step
+//   of the shared depth loads TA + TB values and issues TA x TB independent
+//   FMAs, so a thread's chain is the depth, not depth x tiles. Tiles read
+//   past a matrix's last column and discard those entries, so their loads
+//   need no bounds.
+// - The PD floor (a warp max-reduction of |diag Quu|), the Cholesky (a
+//   row per lane in registers, the pivot and L(k,j) broadcast by
+//   __shfl_sync), the ndx + 1 triangular solves (a right-hand side per lane
+//   in registers) and Vx run on the group's first warp, compiled for each
+//   nu up to RC_MAX_NU so that every loop is unrolled. The pivot's 1/sqrt
+//   is correctly rounded in both types, so the f64 parity gate checks the
+//   code f32 runs.
+// - The phases are __noinline__ (nvcc 12.8 miscompiled fully inlined K1
+//   code twice); they address shared memory through the one dynamic array
+//   rc_smem_raw and integer offsets, so their loads stay shared loads.
 #include <cuda_runtime.h>
 
-#include "model.cuh"
+#include <cstddef>
 
-#define RB_THREADS 128
+#define RC_NT 128          // threads per problem: four warps (1, 2 and 4 timed: PERF.md)
+#define RC_MAX_PPB 4       // problems per block at most
+#define RC_MAX_NU 12       // controls at most
+#define RC_PAD 32          // slack at the end of a problem's region (tile over-reads)
+// the threads that copy the operands: all but the first warp, which
+// factors meanwhile
+#define RC_PF_NT (RC_NT - 32)
+
+// register tiles: RC_TG_A x RC_TG_B of [G; q'], RC_TT x RC_TT of the triangles
+#define RC_TG_A 3
+#define RC_TG_B 2
+#define RC_TT 2
+
+// Offsets, in elements, of one node's operand buffer and of one problem's
+// region of shared memory.
+struct RcLayout {
+  int ndx, nu, nz, nv;
+  int z, lzz, l, f, opl;                 // in an operand buffer
+  int op, vv, g, qv, q, lf, x, per;      // in a problem's region
+};
+
+__host__ __device__ inline RcLayout rc_layout(int ndx, int nu) {
+  RcLayout y;
+  y.ndx = ndx, y.nu = nu, y.nz = ndx + nu, y.nv = ndx + 1;
+  y.z = 0;                      // Z = [Fx Fu], (ndx, nz)
+  y.lzz = y.z + ndx * y.nz;     // [[Lxx, .], [Lxu', Luu]], (nz, nz)
+  y.l = y.lzz + y.nz * y.nz;    // [Lx; Lu]
+  y.f = y.l + y.nz;
+  y.opl = y.f + ndx;
+  y.op = 0;                     // two operand buffers
+  y.vv = y.op + 2 * y.opl;      // [Vxx Vx], (ndx, ndx + 1)
+  y.g = y.vv + ndx * y.nv;      // [G; q'] = [Vxx Vx]'Z, (ndx + 1, nz)
+  y.qv = y.g + y.nv * y.nz;     // [Qx; Qu]
+  y.q = y.qv + y.nz;            // [[Qxx, .], [Qux, Quu]], (nz, nz)
+  y.lf = y.q + y.nz * y.nz;     // Cholesky factor of Quu, (nu, nu)
+  y.x = y.lf + nu * nu;         // [K | k], (nu, ndx + 1)
+  y.per = y.x + nu * y.nv + RC_PAD;
+  return y;
+}
+
+extern __shared__ __align__(16) unsigned char rc_smem_raw[];
 
 template <class S>
-__global__ void riccati_kernel(int T, int ndx, int nu, S rel_eps,
-                               const S* __restrict__ Fx, const S* __restrict__ Fu,
-                               const S* __restrict__ Lx, const S* __restrict__ Lu,
-                               const S* __restrict__ Lxx, const S* __restrict__ Lxu,
-                               const S* __restrict__ Luu, const S* __restrict__ fs,
-                               const S* __restrict__ VxT, const S* __restrict__ VxxT,
-                               const S* __restrict__ xreg, const S* __restrict__ ureg,
-                               const unsigned char* __restrict__ feasible,
-                               S* k_o, S* K_o, S* Qu_o, S* Quuk_o, S* Vx_o, S* Vxx_o) {
-  __shared__ S Vx[EM_MAX_NDX], Vxx[EM_MAX_NDX * EM_MAX_NDX];
-  __shared__ S fx[EM_MAX_NDX * EM_MAX_NDX], fu[EM_MAX_NDX * EM_MAX_NU];
-  __shared__ S VFx[EM_MAX_NDX * EM_MAX_NDX], VFu[EM_MAX_NDX * EM_MAX_NU];
-  __shared__ S Qx[EM_MAX_NDX], Qu[EM_MAX_NU], gap[EM_MAX_NDX];
-  __shared__ S Qxx[EM_MAX_NDX * EM_MAX_NDX], QxxT[EM_MAX_NDX * EM_MAX_NDX];
-  __shared__ S Qux[EM_MAX_NU * EM_MAX_NDX], Quu[EM_MAX_NU * EM_MAX_NU];
-  __shared__ S L[EM_MAX_NU * EM_MAX_NU], kk[EM_MAX_NU], KK[EM_MAX_NU * EM_MAX_NDX];
-  __shared__ S Quuk[EM_MAX_NU];
+__device__ __forceinline__ S* rc_smem(int off) {
+  return reinterpret_cast<S*>(rc_smem_raw) + off;
+}
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nth = blockDim.x;
+// the problem's named barrier (id 0 is the block's)
+__device__ __forceinline__ void rc_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(RC_NT) : "memory");
+}
+
+template <class S>
+__device__ __forceinline__ void cp_async_elem(S* smem, const S* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem),
+               "n"(sizeof(S)));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// 1 / sqrt(x) from the correctly rounded square root and division, the
+// same code in both types; NaN for x < 0
+template <class S>
+__device__ __forceinline__ S rc_rsqrt(S x) { return S(1) / sqrt(x); }
+
+// (i, j <= i) of entry e of a lower triangle stored row by row
+__device__ __forceinline__ void rc_tri(int e, int& i, int& j) {
+  const float v = 8.0f * (float)e + 1.0f;
+  i = (int)((v * rsqrtf(v) - 1.0f) * 0.5f);
+  while (i * (i + 1) / 2 > e) --i;
+  while ((i + 1) * (i + 2) / 2 <= e) ++i;
+  j = e - i * (i + 1) / 2;
+}
+
+// acc[a][b] = sum_d A[d lda + a] Bm[d ldb + b]: A and Bm point at the tile's
+// first column; entries past a matrix's last column are read (from the
+// next row or array of the problem's region) and discarded by the caller
+template <class S, int TA, int TB>
+__device__ __forceinline__ void rc_tile(const S* A, int lda, const S* Bm, int ldb,
+                                        int depth, S (&acc)[TA][TB]) {
+#pragma unroll
+  for (int a = 0; a < TA; ++a)
+#pragma unroll
+    for (int b = 0; b < TB; ++b) acc[a][b] = S(0);
+#pragma unroll 2
+  for (int d = 0; d < depth; ++d) {
+    S x[TA], y[TB];
+#pragma unroll
+    for (int a = 0; a < TA; ++a) x[a] = A[a];
+#pragma unroll
+    for (int b = 0; b < TB; ++b) y[b] = Bm[b];
+#pragma unroll
+    for (int a = 0; a < TA; ++a)
+#pragma unroll
+      for (int b = 0; b < TB; ++b) acc[a][b] = acc[a][b] + x[a] * y[b];
+    A += lda;
+    Bm += ldb;
+  }
+}
+
+// a thread's walk over a row-major (rows, cols) array, `step` entries at a
+// time: its first (row, column) and its step in rows and columns
+struct RcWalk {
+  int r0, c0, dr, dc;
+};
+
+__device__ inline RcWalk rc_walk(int cols, int t, int step) {
+  return {t / cols, t % cols, step / cols, step % cols};
+}
+
+// src (rows, cols), contiguous -> dst with row stride ld (transposed: dst
+// column r holds row r)
+template <class S>
+__device__ __forceinline__ void rc_copy(S* dst, int ld, bool tr, const S* src, int rows,
+                                        int cols, RcWalk w) {
+  int r = w.r0, c = w.c0;
+#pragma unroll 1
+  while (r < rows) {
+    cp_async_elem(dst + (tr ? c * ld + r : r * ld + c), src + r * cols + c);
+    c += w.dc;
+    r += w.dr;
+    if (c >= cols) c -= cols, ++r;
+  }
+}
+
+// node bt's operands into the operand buffer at `op`: Z = [Fx Fu], Lzz
+// (its upper right block is never read), [Lx; Lu] and f, one element per copy
+template <class S>
+__device__ __noinline__ void rc_prefetch(int ndx, int nu, int op, size_t bt, int tq,
+                                         RcWalk wx, RcWalk wu, const S* Fx, const S* Fu,
+                                         const S* Lxx, const S* Lxu, const S* Luu,
+                                         const S* Lx, const S* Lu, const S* fs) {
+  const RcLayout y = rc_layout(ndx, nu);
+  const int nz = y.nz;
+  S* o = rc_smem<S>(op);
+  const S* lxu = Lxu + bt * ndx * nu;
+  rc_copy<S>(o + y.z, nz, false, Fx + bt * ndx * ndx, ndx, ndx, wx);
+  rc_copy<S>(o + y.z + ndx, nz, false, Fu + bt * ndx * nu, ndx, nu, wu);
+  rc_copy<S>(o + y.lzz, nz, false, Lxx + bt * ndx * ndx, ndx, ndx, wx);
+  rc_copy<S>(o + y.lzz + ndx * nz, nz, true, lxu, ndx, nu, wu);
+  rc_copy<S>(o + y.lzz + ndx * nz + ndx, nz, false, Luu + bt * nu * nu, nu, nu, wu);
+#pragma unroll 1
+  for (int i = tq; i < nz + ndx; i += RC_PF_NT)
+    cp_async_elem(o + y.l + i, i < ndx ? Lx + bt * ndx + i
+                               : i < nz ? Lu + bt * nu + (i - ndx) : fs + bt * ndx + (i - nz));
+}
+
+// [G; q'] = [Vxx Vx]'Z, a RC_TG_A x RC_TG_B tile per thread
+template <class S>
+__device__ __noinline__ void rc_product_g(int ndx, int nu, int base, int buf, int tp) {
+  const RcLayout y = rc_layout(ndx, nu);
+  S* sm = rc_smem<S>(base);
+  const int nz = y.nz, nbj = (nz + RC_TG_B - 1) / RC_TG_B;
+  const int ntiles = ((y.nv + RC_TG_A - 1) / RC_TG_A) * nbj;
+  for (int t = tp; t < ntiles; t += RC_NT) {
+    const int i0 = (t / nbj) * RC_TG_A, j0 = (t % nbj) * RC_TG_B;
+    S acc[RC_TG_A][RC_TG_B];
+    rc_tile<S, RC_TG_A, RC_TG_B>(sm + y.vv + i0, y.nv, sm + buf + y.z + j0, nz, ndx, acc);
+#pragma unroll
+    for (int a = 0; a < RC_TG_A; ++a)
+#pragma unroll
+      for (int b = 0; b < RC_TG_B; ++b)
+        if (i0 + a < y.nv && j0 + b < nz) sm[y.g + (i0 + a) * nz + j0 + b] = acc[a][b];
+  }
+}
+
+// [Qx; Qu] = [Lx; Lu] + q, and Q = Lzz + Z'G from the lower triangle of
+// Z'G, a RC_TT x RC_TT tile per thread (the upper right block, Qxu, is
+// left unread)
+template <class S>
+__device__ __noinline__ void rc_product_q(int ndx, int nu, int base, int buf, int tp) {
+  const RcLayout y = rc_layout(ndx, nu);
+  S* sm = rc_smem<S>(base);
+  const S* op = sm + buf;
+  const S* Lzz = op + y.lzz;
+  S* Q = sm + y.q;
+  const int nz = y.nz, nb = (nz + RC_TT - 1) / RC_TT;
+  for (int c = tp; c < nz; c += RC_NT) sm[y.qv + c] = op[y.l + c] + sm[y.g + ndx * nz + c];
+  for (int t = tp; t < nb * (nb + 1) / 2; t += RC_NT) {
+    int bi, bj;
+    rc_tri(t, bi, bj);
+    const int i0 = bi * RC_TT, j0 = bj * RC_TT;
+    S acc[RC_TT][RC_TT];
+    rc_tile<S, RC_TT, RC_TT>(op + y.z + i0, nz, sm + y.g + j0, nz, ndx, acc);
+#pragma unroll
+    for (int a = 0; a < RC_TT; ++a)
+#pragma unroll
+      for (int b = 0; b < RC_TT; ++b) {
+        const int i = i0 + a, j = j0 + b;
+        if (i < nz && j <= i) {
+          Q[i * nz + j] = Lzz[i * nz + j] + acc[a][b];
+          Q[j * nz + i] = Lzz[j * nz + i] + acc[a][b];
+        }
+      }
+  }
+}
+
+// On the group's first warp, with nu = NU known at compile time:
+// - the PD floor, a warp max-reduction of |diag Quu|;
+// - the Cholesky factor, lane i holding row i in registers: step j takes
+//   the pivot from lane j and L(k,j) from lane k by __shfl_sync; a
+//   negative pivot makes its 1/sqrt NaN;
+// - [K | k] = Quu^-1 [Qux | Qu], a right-hand side per lane in registers,
+//   L from shared memory;
+// - Quuk = Quu k, Vx = Qx + K'Quuk - 2 K'Qu, and the stores of k, K, Qu
+//   and Quuk.
+template <class S, int NU>
+__device__ __noinline__ void rc_factor_solve(int ndx, int base, int lane, S rel_eps,
+                                             S ureg, size_t bt, S* k_o, S* K_o, S* Qu_o,
+                                             S* Quuk_o) {
+  const RcLayout y = rc_layout(ndx, NU);
+  S* sm = rc_smem<S>(base);
+  const S* Quu = sm + y.q + ndx * y.nz + ndx;   // row stride nz
+  const S* qv = sm + y.qv;
+  S* Lf = sm + y.lf;
+  const int nz = y.nz, nv = y.nv;
+  const bool row = lane < NU, rhs = lane <= ndx;
+  const unsigned all = 0xffffffffu;
+  S mx = row ? Quu[lane * nz + lane] : S(0);
+  mx = mx < S(0) ? -mx : mx;
+  for (int o = 16; o > 0; o >>= 1) {
+    const S other = __shfl_xor_sync(all, mx, o);
+    mx = other > mx ? other : mx;
+  }
+  const S shift = ureg + rel_eps * mx;
+  S q[NU], a[NU], x[NU], inv_d[NU];
+#pragma unroll
+  for (int k = 0; k < NU; ++k) {
+    q[k] = row ? Quu[lane * nz + k] + (k == lane ? shift : S(0)) : S(0);
+    a[k] = q[k];
+    x[k] = rhs ? (lane < ndx ? sm[y.q + (ndx + k) * nz + lane] : qv[ndx + k]) : S(0);
+  }
+#pragma unroll
+  for (int j = 0; j < NU; ++j) {
+    const S p = __shfl_sync(all, a[j], j);
+    inv_d[j] = rc_rsqrt(p);
+    const S l = lane == j ? p * inv_d[j] : a[j] * inv_d[j];
+    a[j] = l;
+#pragma unroll
+    for (int k = j + 1; k < NU; ++k) a[k] = a[k] - l * __shfl_sync(all, l, k);
+  }
+  if (row) {
+#pragma unroll
+    for (int k = 0; k < NU; ++k) Lf[lane * NU + k] = a[k];
+  }
+  __syncwarp();
+  // L z = b a column at a time, then L'x = z
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    x[i] = x[i] * inv_d[i];
+#pragma unroll
+    for (int r = i + 1; r < NU; ++r) x[r] = x[r] - Lf[r * NU + i] * x[i];
+  }
+#pragma unroll
+  for (int i = NU - 1; i >= 0; --i) {
+    x[i] = x[i] * inv_d[i];
+#pragma unroll
+    for (int r = 0; r < i; ++r) x[r] = x[r] - Lf[i * NU + r] * x[i];
+  }
+  // k from lane ndx; Quuk_p = row p of Quu times k, on lane p
+  S quuk = S(0), kp = S(0);
+#pragma unroll
+  for (int j = 0; j < NU; ++j) {
+    const S kj = __shfl_sync(all, x[j], ndx);
+    quuk = quuk + q[j] * kj;
+    if (j == lane) kp = kj;
+  }
+  S a1 = S(0), a2 = S(0);
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    const S quuk_i = __shfl_sync(all, quuk, i);
+    a1 = a1 + x[i] * quuk_i;
+    a2 = a2 + x[i] * qv[ndx + i];
+  }
+  if (rhs) {
+#pragma unroll
+    for (int i = 0; i < NU; ++i) sm[y.x + i * nv + lane] = x[i];
+  }
+  if (lane < ndx) {
+    sm[y.vv + lane * nv + ndx] = qv[lane] + a1 - S(2) * a2;
+#pragma unroll
+    for (int i = 0; i < NU; ++i) K_o[(bt * NU + i) * ndx + lane] = x[i];
+  }
+  if (row) {
+    k_o[bt * NU + lane] = kp;
+    Qu_o[bt * NU + lane] = qv[ndx + lane];
+    Quuk_o[bt * NU + lane] = quuk;
+  }
+}
+
+// Vxx = sym(Qxx) - Qux'K + xreg I from the lower triangle of Qux'K, a
+// RC_TT x RC_TT tile per thread, written to both halves
+template <class S>
+__device__ __noinline__ void rc_value(int ndx, int nu, int base, int tp, S xreg) {
+  const RcLayout y = rc_layout(ndx, nu);
+  S* sm = rc_smem<S>(base);
+  const S* Q = sm + y.q;
+  S* VV = sm + y.vv;
+  const int nz = y.nz, nv = y.nv, nb = (ndx + RC_TT - 1) / RC_TT;
+  for (int t = tp; t < nb * (nb + 1) / 2; t += RC_NT) {
+    int bi, bj;
+    rc_tri(t, bi, bj);
+    const int i0 = bi * RC_TT, j0 = bj * RC_TT;
+    S acc[RC_TT][RC_TT];
+    rc_tile<S, RC_TT, RC_TT>(Q + ndx * nz + i0, nz, sm + y.x + j0, nv, nu, acc);
+#pragma unroll
+    for (int a = 0; a < RC_TT; ++a)
+#pragma unroll
+      for (int b = 0; b < RC_TT; ++b) {
+        const int i = i0 + a, j = j0 + b;
+        if (i < ndx && j <= i) {
+          const S v = S(0.5) * (Q[i * nz + j] + Q[j * nz + i]) - acc[a][b]
+                      + (i == j ? xreg : S(0));
+          VV[i * nv + j] = v;
+          VV[j * nv + i] = v;
+        }
+      }
+  }
+}
+
+// the gap term with the new Vxx, and the value function's stores (Vxx as
+// one contiguous run, walked by `w`)
+template <class S>
+__device__ __noinline__ void rc_gap_store(int ndx, int nu, int base, int buf, int tp,
+                                          RcWalk w, bool infeasible, size_t bt, S* Vx_o,
+                                          S* Vxx_o) {
+  const RcLayout y = rc_layout(ndx, nu);
+  S* sm = rc_smem<S>(base);
+  const S* f = sm + buf + y.f;
+  S* VV = sm + y.vv;
+  const int nv = y.nv;
+  if (tp < ndx) {
+    S v = VV[tp * nv + ndx];
+    if (infeasible) {
+      S acc = S(0);
+      for (int j = 0; j < ndx; ++j) acc = acc + VV[tp * nv + j] * f[j];
+      v = v + acc;
+      VV[tp * nv + ndx] = v;
+    }
+    Vx_o[bt * ndx + tp] = v;
+  }
+  S* out = Vxx_o + bt * ndx * ndx;
+  int r = w.r0, c = w.c0;
+#pragma unroll 1
+  while (r < ndx) {
+    out[r * ndx + c] = VV[r * nv + c];
+    c += w.dc;
+    r += w.dr;
+    if (c >= ndx) c -= ndx, ++r;
+  }
+}
+
+template <class S>
+__global__ void __launch_bounds__(RC_MAX_PPB * RC_NT)
+riccati_kernel(int B, int T, int ndx, int nu, S rel_eps,
+               const S* __restrict__ Fx, const S* __restrict__ Fu,
+               const S* __restrict__ Lx, const S* __restrict__ Lu,
+               const S* __restrict__ Lxx, const S* __restrict__ Lxu,
+               const S* __restrict__ Luu, const S* __restrict__ fs,
+               const S* __restrict__ VxT, const S* __restrict__ VxxT,
+               const S* __restrict__ xreg, const S* __restrict__ ureg,
+               const unsigned char* __restrict__ feasible,
+               S* k_o, S* K_o, S* Qu_o, S* Quuk_o, S* Vx_o, S* Vxx_o) {
+  // warp w serves problem w % ppb, so the first warps of the block's
+  // problems (which factor alone) sit on different schedulers
+  const int ppb = blockDim.x / RC_NT, w = threadIdx.x / 32;
+  const int p = w % ppb, tp = (w / ppb) * 32 + threadIdx.x % 32;
+  const int b = blockIdx.x * ppb + p;
+  if (b >= B) return;   // a ragged last block: the group has no problem
+  const RcLayout y = rc_layout(ndx, nu);
+  const int base = p * y.per, bar = 1 + p;
   const S xr = xreg[b], ur = ureg[b];
   const bool infeasible = feasible[b] == 0;
+  const bool copier = tp >= 32;
+  const int tq = copier ? tp - 32 : 0;
+  const RcWalk wx = rc_walk(ndx, tq, RC_PF_NT), wu = rc_walk(nu, tq, RC_PF_NT);
+  const RcWalk wv = rc_walk(ndx, tp, RC_NT);
 
-  for (int e = tid; e < ndx; e += nth) Vx[e] = VxT[(size_t)b * ndx + e];
-  for (int e = tid; e < ndx * ndx; e += nth) Vxx[e] = VxxT[(size_t)b * ndx * ndx + e];
-  __syncthreads();
+  S* VV = rc_smem<S>(base + y.vv);
+  for (int r = 0; r < ndx; ++r)
+    for (int c = tp; c <= ndx; c += RC_NT)
+      cp_async_elem(VV + r * y.nv + c, c < ndx ? VxxT + ((size_t)b * ndx + r) * ndx + c
+                                               : VxT + (size_t)b * ndx + r);
+  if (copier)
+    rc_prefetch<S>(ndx, nu, base + y.op + ((T - 1) & 1) * y.opl, (size_t)b * T + T - 1, tq,
+                   wx, wu, Fx, Fu, Lxx, Lxu, Luu, Lx, Lu, fs);
+  cp_async_commit();
 
   for (int t = T - 1; t >= 0; --t) {
     const size_t bt = (size_t)b * T + t;
-    const S* lx = Lx + bt * ndx;
-    const S* lu = Lu + bt * nu;
-    const S* lxx = Lxx + bt * ndx * ndx;
-    const S* lxu = Lxu + bt * ndx * nu;     // (ndx, nu)
-    const S* luu = Luu + bt * nu * nu;
-    for (int e = tid; e < ndx * ndx; e += nth) fx[e] = Fx[bt * ndx * ndx + e];
-    for (int e = tid; e < ndx * nu; e += nth) fu[e] = Fu[bt * ndx * nu + e];
-    for (int e = tid; e < ndx; e += nth) gap[e] = fs[bt * ndx + e];
-    __syncthreads();
-
-    // VFx = Vxx' Fx, VFu = Vxx' Fu, Qx = Lx + Fx'Vx, Qu = Lu + Fu'Vx
-    for (int e = tid; e < ndx * ndx; e += nth) {
-      const int p = e / ndx, m = e % ndx;
-      S acc = S(0);
-      for (int j = 0; j < ndx; ++j) acc = acc + Vxx[j * ndx + p] * fx[j * ndx + m];
-      VFx[e] = acc;
-    }
-    for (int e = tid; e < ndx * nu; e += nth) {
-      const int p = e / nu, m = e % nu;
-      S acc = S(0);
-      for (int j = 0; j < ndx; ++j) acc = acc + Vxx[j * ndx + p] * fu[j * nu + m];
-      VFu[e] = acc;
-    }
-    for (int p = tid; p < ndx; p += nth) {
-      S acc = S(0);
-      for (int j = 0; j < ndx; ++j) acc = acc + fx[j * ndx + p] * Vx[j];
-      Qx[p] = lx[p] + acc;
-    }
-    for (int p = tid; p < nu; p += nth) {
-      S acc = S(0);
-      for (int j = 0; j < ndx; ++j) acc = acc + fu[j * nu + p] * Vx[j];
-      Qu[p] = lu[p] + acc;
-    }
-    __syncthreads();
-
-    // Qxx = Lxx + VFx'Fx, QxxT = Lxx + Fx'VFx, Qux = Lxu' + VFu'Fx,
-    // Quu = Luu + VFu'Fu
-    for (int e = tid; e < ndx * ndx; e += nth) {
-      const int p = e / ndx, m = e % ndx;
-      S a1 = S(0), a2 = S(0);
-      for (int j = 0; j < ndx; ++j) {
-        a1 = a1 + VFx[j * ndx + p] * fx[j * ndx + m];
-        a2 = a2 + fx[j * ndx + p] * VFx[j * ndx + m];
+    const int buf = y.op + (t & 1) * y.opl;
+    const int next = y.op + ((t - 1) & 1) * y.opl;
+    // node t's copies have landed, and every thread is done with node t+1,
+    // whose buffer node t-1's copies reuse
+    cp_async_wait_all();
+    rc_sync(bar);
+    rc_product_g<S>(ndx, nu, base, buf, tp);
+    rc_sync(bar);
+    rc_product_q<S>(ndx, nu, base, buf, tp);
+    rc_sync(bar);
+    if (tp < 32) {
+      switch (nu) {
+#define RC_FACTOR(N)                                                                 \
+  case N:                                                                            \
+    rc_factor_solve<S, N>(ndx, base, tp, rel_eps, ur, bt, k_o, K_o, Qu_o, Quuk_o); \
+    break;
+        RC_FACTOR(1) RC_FACTOR(2) RC_FACTOR(3) RC_FACTOR(4) RC_FACTOR(5) RC_FACTOR(6)
+        RC_FACTOR(7) RC_FACTOR(8) RC_FACTOR(9) RC_FACTOR(10) RC_FACTOR(11) RC_FACTOR(12)
+#undef RC_FACTOR
       }
-      Qxx[e] = lxx[e] + a1;
-      QxxT[e] = lxx[e] + a2;
+    } else {
+      if (t > 0)
+        rc_prefetch<S>(ndx, nu, base + next, bt - 1, tq, wx, wu, Fx, Fu, Lxx, Lxu, Luu, Lx,
+                       Lu, fs);
+      cp_async_commit();
     }
-    for (int e = tid; e < nu * ndx; e += nth) {
-      const int p = e / ndx, m = e % ndx;
-      S acc = S(0);
-      for (int j = 0; j < ndx; ++j) acc = acc + VFu[j * nu + p] * fx[j * ndx + m];
-      Qux[e] = lxu[m * nu + p] + acc;
-    }
-    for (int e = tid; e < nu * nu; e += nth) {
-      const int p = e / nu, m = e % nu;
-      S acc = S(0);
-      for (int j = 0; j < ndx; ++j) acc = acc + VFu[j * nu + p] * fu[j * nu + m];
-      Quu[e] = luu[e] + acc;
-    }
-    __syncthreads();
-
-    // PD floor relative to the diagonal, then the Cholesky factor
-    if (tid == 0) {
-      S mx = S(0);
-      for (int i = 0; i < nu; ++i) {
-        S a = Quu[i * nu + i] < S(0) ? -Quu[i * nu + i] : Quu[i * nu + i];
-        mx = a > mx ? a : mx;
-      }
-      const S shift = ur + rel_eps * mx;
-      for (int i = 0; i < nu; ++i) Quu[i * nu + i] = Quu[i * nu + i] + shift;
-      for (int e = 0; e < nu * nu; ++e) L[e] = Quu[e];
-      cholesky<S, S>(L, nu, nu);
-    }
-    __syncthreads();
-
-    // k = Quu^-1 Qu (thread ndx), K[:, m] = Quu^-1 Qux[:, m] (thread m)
-    for (int m = tid; m <= ndx; m += nth) {
-      S col[EM_MAX_NU];
-      for (int i = 0; i < nu; ++i) col[i] = m < ndx ? Qux[i * ndx + m] : Qu[i];
-      chol_solve<S>(L, nu, nu, col);
-      for (int i = 0; i < nu; ++i) {
-        if (m < ndx) KK[i * ndx + m] = col[i];
-        else kk[i] = col[i];
-      }
-    }
-    __syncthreads();
-
-    for (int p = tid; p < nu; p += nth) {
-      S acc = S(0);
-      for (int j = 0; j < nu; ++j) acc = acc + Quu[j * nu + p] * kk[j];
-      Quuk[p] = acc;
-    }
-    __syncthreads();
-
-    // Vx = Qx + K'Quuk - 2 K'Qu ; Vxx = 0.5 (Qxx + QxxT - Qux'K - K'Qux) + xreg I
-    for (int p = tid; p < ndx; p += nth) {
-      S a1 = S(0), a2 = S(0);
-      for (int j = 0; j < nu; ++j) {
-        a1 = a1 + KK[j * ndx + p] * Quuk[j];
-        a2 = a2 + KK[j * ndx + p] * Qu[j];
-      }
-      Vx[p] = Qx[p] + a1 - S(2) * a2;
-    }
-    for (int e = tid; e < ndx * ndx; e += nth) {
-      const int p = e / ndx, m = e % ndx;
-      S a1 = S(0), a2 = S(0);
-      for (int j = 0; j < nu; ++j) {
-        a1 = a1 + Qux[j * ndx + p] * KK[j * ndx + m];
-        a2 = a2 + KK[j * ndx + p] * Qux[j * ndx + m];
-      }
-      Vxx[e] = S(0.5) * (Qxx[e] + QxxT[e] - a1 - a2) + (p == m ? xr : S(0));
-    }
-    __syncthreads();
-
-    if (infeasible) {
-      for (int p = tid; p < ndx; p += nth) {
-        S acc = S(0);
-        for (int j = 0; j < ndx; ++j) acc = acc + Vxx[j * ndx + p] * gap[j];
-        Vx[p] = Vx[p] + acc;
-      }
-    }
-    for (int e = tid; e < nu; e += nth) {
-      k_o[bt * nu + e] = kk[e];
-      Qu_o[bt * nu + e] = Qu[e];
-      Quuk_o[bt * nu + e] = Quuk[e];
-    }
-    for (int e = tid; e < nu * ndx; e += nth) K_o[bt * nu * ndx + e] = KK[e];
-    for (int e = tid; e < ndx * ndx; e += nth) Vxx_o[bt * ndx * ndx + e] = Vxx[e];
-    __syncthreads();
-    for (int e = tid; e < ndx; e += nth) Vx_o[bt * ndx + e] = Vx[e];
-    __syncthreads();
+    rc_sync(bar);
+    rc_value<S>(ndx, nu, base, tp, xr);
+    rc_sync(bar);
+    rc_gap_store<S>(ndx, nu, base, buf, tp, wv, infeasible, bt, Vx_o, Vxx_o);
   }
 }
 
@@ -202,10 +497,28 @@ static int launch_riccati(int B, int T, int ndx, int nu, S rel_eps, const S* Fx,
                           const S* VxxT, const S* xreg, const S* ureg,
                           const unsigned char* feasible, S* k, S* K, S* Qu,
                           S* Quuk, S* Vx, S* Vxx, void* stream) {
-  if (B > 0)
-    riccati_kernel<S><<<B, RB_THREADS, 0, (cudaStream_t)stream>>>(
-        T, ndx, nu, rel_eps, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, VxT, VxxT,
-        xreg, ureg, feasible, k, K, Qu, Quuk, Vx, Vxx);
+  // the solves take the ndx + 1 right-hand sides on one warp
+  if (ndx < 1 || ndx + 1 > 32 || nu < 1 || nu > RC_MAX_NU)
+    return (int)cudaErrorInvalidValue;
+  // as many problems per block as the device's opt-in shared memory takes
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  const size_t per = (size_t)rc_layout(ndx, nu).per * sizeof(S);
+  const int ppb = (int)(RC_MAX_PPB < optin / per ? RC_MAX_PPB : optin / per);
+  if (ppb < 1) return (int)cudaErrorInvalidValue;
+  const int smem = (int)(ppb * per);
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(riccati_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (B > 0 && T > 0)
+    riccati_kernel<S><<<(B + ppb - 1) / ppb, ppb * RC_NT, smem, (cudaStream_t)stream>>>(
+        B, T, ndx, nu, rel_eps, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, VxT, VxxT, xreg,
+        ureg, feasible, k, K, Qu, Quuk, Vx, Vxx);
   return (int)cudaGetLastError();
 }
 
@@ -219,9 +532,9 @@ int eagle_riccati_f32(int B, int T, int ndx, int nu, float rel_eps,
                       const unsigned char* feasible, float* k, float* K,
                       float* Qu, float* Quuk, float* Vx, float* Vxx,
                       void* stream) {
-  return launch_riccati<float>(B, T, ndx, nu, rel_eps, Fx, Fu, Lx, Lu, Lxx,
-                               Lxu, Luu, fs, VxT, VxxT, xreg, ureg, feasible,
-                               k, K, Qu, Quuk, Vx, Vxx, stream);
+  return launch_riccati<float>(B, T, ndx, nu, rel_eps, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu,
+                               fs, VxT, VxxT, xreg, ureg, feasible, k, K, Qu, Quuk,
+                               Vx, Vxx, stream);
 }
 
 int eagle_riccati_f64(int B, int T, int ndx, int nu, double rel_eps,
@@ -232,9 +545,9 @@ int eagle_riccati_f64(int B, int T, int ndx, int nu, double rel_eps,
                       const unsigned char* feasible, double* k, double* K,
                       double* Qu, double* Quuk, double* Vx, double* Vxx,
                       void* stream) {
-  return launch_riccati<double>(B, T, ndx, nu, rel_eps, Fx, Fu, Lx, Lu, Lxx,
-                                Lxu, Luu, fs, VxT, VxxT, xreg, ureg, feasible,
-                                k, K, Qu, Quuk, Vx, Vxx, stream);
+  return launch_riccati<double>(B, T, ndx, nu, rel_eps, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu,
+                                fs, VxT, VxxT, xreg, ureg, feasible, k, K, Qu, Quuk,
+                                Vx, Vxx, stream);
 }
 
 }  // extern "C"

@@ -80,7 +80,7 @@ def backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, VxT, VxxT, xreg, ureg,
            (xreg.contiguous(), "xreg", (B,)), (ureg.contiguous(), "ureg", (B,))]
     for t, name, shape in ins:
         _cuda.check_tensor(t, name, shape, dt, dev)
-    feas = feasible.to(torch.uint8).contiguous()
+    feas = feasible.to(torch.bool).contiguous().view(torch.uint8)
     _cuda.check_tensor(feas, "feasible", (B,), torch.uint8, dev)
     e = lambda *shape: torch.empty((B, T) + shape, dtype=dt, device=dev)
     out = (e(nu), e(nu, ndx), e(nu), e(nu), e(ndx), e(ndx, ndx))

@@ -1,0 +1,166 @@
+"""Profile the port's flagship tick on one card: where the time goes.
+
+    python3 -m eagle_mpc_tpu_torch.profile_tick
+
+Runs the cell of ``chip_smoke.py`` (hexacopter370_flying_arm_3 displacement,
+offline reference, B=512, float32): the depth-30 warm start and one settle
+chunk of 10 chained ticks, then 3 ticks unprofiled (the tick time) and 3
+more under ``torch.profiler``, with the solver's named functions wrapped in
+``torch.profiler.record_function`` for that window only. Prints the card's
+name and power limit, the span table (ms per call under the profiler,
+calls per tick), the three kernels' device time per launch, and the device
+busy share: the profiler's self device time over the profiled wall time.
+The wrapping lives in this process alone; the main path has no option for
+it. Run from the root of a checkout.
+"""
+
+import functools
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TICKS = 3
+
+
+def _spans():
+    """(owner, attribute, span name) of each function the profile wraps."""
+    from .mpc import CarrotMpc
+    from .ocp import problem as P
+    from .ops import node_cuda, riccati_cuda, rollout_cuda
+    from .sim import AerialSimulator
+    from .solvers import fddp
+
+    return [
+        (CarrotMpc, "update_problem", "update_problem"),
+        (fddp, "_fixed_iteration", "fixed_iteration"),
+        (fddp, "solve_while_fixed_body", "polish_while_fixed"),
+        (P, "terminal_calc_diff", "terminal_calc_diff"),
+        (fddp, "_gaps", "gaps"),
+        (fddp, "_backward_pass", "backward_pass"),
+        (fddp, "_forward_pass_multi", "forward_pass_multi"),
+        (fddp, "_expected_improvement", "expected_improvement"),
+        (node_cuda, "calc_diff_running", "K1 wrapper"),
+        (riccati_cuda, "backward", "K3 wrapper"),
+        (rollout_cuda, "rollout", "K2 wrapper"),
+        (AerialSimulator, "step", "sim_step"),
+    ]
+
+
+def _wrap(fn, name):
+    import torch
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def _device_us(evt):
+    """Self device time of a device event (a kernel, a copy); 0 for host
+    events and for the device's copies of the annotations."""
+    from torch.autograd import DeviceType
+
+    if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:
+        return 0.0
+    return evt.self_device_time_total
+
+
+def profile(device, batch):
+    """Warm start, settle, time and profile the cell on ``device`` (float32,
+    ``batch`` scenarios) with ``chip_smoke``'s warm start and tick; prints
+    the report."""
+    import torch
+
+    import chip_smoke as cs
+
+    dtype = torch.float32
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    ctrl, sim, ref, hover, n_rot = cs.flagship(device, dtype)
+    B = batch
+    t_ms = cs.T0 - cs.TICKS * cs.DT_SIM
+    xb, xs, us = cs.initial_batch(ctrl, ref, hover, n_rot, B, t_ms, device, dtype)
+
+    def tick(state):
+        t_ms, xb, xs, us = state
+        r, xb = cs.tick(ctrl, sim, t_ms, xb, xs, us)
+        return t_ms + cs.DT_SIM, xb, r.xs, r.us
+
+    w = cs.warm_start(ctrl, t_ms, xb, xs, us)
+    state = (t_ms, xb, w.xs, w.us)
+    for _ in range(cs.TICKS):
+        state = tick(state)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(TICKS):
+        state = tick(state)
+    sync()
+    tick_ms = (time.perf_counter() - t0) / TICKS * 1e3
+
+    spans = _spans()
+    originals = [getattr(owner, attr) for owner, attr, _ in spans]
+    for (owner, attr, name), fn in zip(spans, originals):
+        setattr(owner, attr, _wrap(fn, name))
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TICKS):
+                state = tick(state)
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (owner, attr, _), fn in zip(spans, originals):
+            setattr(owner, attr, fn)
+
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    by_key = {e.key: e for e in events if e.device_type == DeviceType.CPU}
+    print(f"tick f32 B={B}: {tick_ms:.3f} ms unprofiled, "
+          f"{wall_ms / TICKS:.3f} ms under the profiler ({TICKS} ticks each)",
+          flush=True)
+    print("| Span (profiled) | ms per call | calls per tick |")
+    print("|---|---|---|")
+    rows = sorted((by_key[n] for _, _, n in spans if n in by_key),
+                  key=lambda e: -e.cpu_time_total)
+    for e in rows:
+        print(f"| `{e.key}` | {e.cpu_time_total / e.count / 1e3:.3f} | "
+              f"{e.count / TICKS:.2f} |")
+    for kernel in ("node_kernel", "riccati_kernel", "rollout_kernel"):
+        ks = [e for e in events if kernel in e.key and _device_us(e) > 0]
+        n = sum(e.count for e in ks)
+        if n:
+            print(f"{kernel}: {sum(_device_us(e) for e in ks) / n / 1e3:.4f} ms "
+                  f"device time per launch, {n / TICKS:.2f} launches per tick")
+    busy_ms = sum(_device_us(e) for e in events) / 1e3
+    launches = sum(e.count for e in events if _device_us(e) > 0)
+    print(f"device busy: {busy_ms:.1f} ms of self device time in {wall_ms:.1f} ms "
+          f"of wall, {100 * busy_ms / wall_ms:.1f} %; {launches / TICKS:.0f} "
+          "device operations per tick", flush=True)
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is False; the profile needs an "
+              "NVIDIA GPU", flush=True)
+        return 1
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    profile(torch.device("cuda", 0), cs.BATCH)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

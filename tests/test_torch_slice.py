@@ -140,3 +140,14 @@ def test_kernels_match_plain_on_cuda():
             got, want = [g[lanes] for g in got], [w[lanes] for w in want]
         for w, g in zip(want, got):
             assert chip_smoke._err(w, g)[1] < chip_smoke.PARITY_RTOL, name
+    # K3 on a ragged batch and with indefinite Quu, at the state tiled to 12
+    tile = tuple(torch.as_tensor(np.concatenate([np.asarray(a)] * 6))
+                 for a in (fx["x0"], fx["tick_xs_in"], fx["tick_us_in"]))
+    params, xs, us, feas = chip_smoke.parity_inputs(
+        ctrl, (state[0],) + tile, dev, torch.float64)
+    bargs = chip_smoke.kernel_calls(ctrl, params, xs, us, feas,
+                                    reg=1e-2)["riccati_backward"][2]
+    cases = chip_smoke.riccati_cases(bargs, n_ragged=11, every=5)
+    assert cases["indefinite"][2] <= 10
+    for name, (_, rel, _, _) in cases.items():
+        assert rel < chip_smoke.PARITY_RTOL, name
