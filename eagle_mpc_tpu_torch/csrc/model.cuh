@@ -1,7 +1,7 @@
 // Device-side model of one node: the free-flyer state manifold, the
 // multibody dynamics (tree kinematics, RNEA, CRBA, Cholesky), the squash,
-// rotor allocation, the symplectic-Euler step, and the STATE/CONTROL cost
-// rows with their activations.
+// rotor allocation, the symplectic-Euler step, and the cost rows of the
+// STATE, CONTROL and operational-frame slots with their activations.
 //
 // Every function is a template on the scalar S (float or double) and on
 // the value type V (S, or Dual<S> for forward-mode tangents). Mirrors
@@ -42,14 +42,21 @@
 
 #define EM_EPS2 1e-8
 
-enum { EM_KIND_STATE = 0, EM_KIND_CONTROL = 1 };
+enum {
+  EM_KIND_STATE = 0,
+  EM_KIND_CONTROL = 1,
+  EM_KIND_FRAME_PLACEMENT = 2,
+  EM_KIND_FRAME_TRANSLATION = 3,
+  EM_KIND_FRAME_ROTATION = 4,
+  EM_KIND_FRAME_VELOCITY = 5
+};
 
 enum { EM_ACT_QUAD = 0, EM_ACT_WQUAD = 1, EM_ACT_QBARRIER = 2, EM_ACT_WQBARRIER = 3 };
 enum { EM_REVOLUTE = 0, EM_PRISMATIC = 1 };
 
 // Gauss-Newton structure of a slot: CONTROL residuals are s - ref, the
-// identity on s; every other kind (STATE today; frame slots later) depends
-// on x alone.
+// identity on s; every other kind (STATE and the frame slots) depends on x
+// alone.
 __host__ __device__ __forceinline__ bool slot_on_x(int kind) { return kind != EM_KIND_CONTROL; }
 
 struct ModelDesc {
@@ -60,6 +67,8 @@ struct ModelDesc {
   double tau_f[6 * EM_MAX_NU];      // rotor allocation (6, n_rot), row-major
   double gravity;
   double dt;                        // node duration (s)
+  double slot_fp[EM_MAX_SLOTS][3];  // frame slots: the frame's translation in its body
+  double slot_fR[EM_MAX_SLOTS][9];  // frame slots: the frame's rotation in its body (row-major)
   int parent[EM_MAX_NJ];
   int joint_type[EM_MAX_NJ];
   int nj, nq, nv, nu, n_rot, use_squash;
@@ -72,6 +81,7 @@ struct ModelDesc {
   int slot_nr[EM_MAX_SLOTS];
   int slot_ref_off[EM_MAX_SLOTS];   // offset of the slot's reference in a node row
   int slot_glob_off[EM_MAX_SLOTS];  // offset of the slot's act_w in a global row
+  int slot_body[EM_MAX_SLOTS];      // frame slots: the body the frame is fixed to
 };
 
 // ---------------------------------------------------------------------------
@@ -127,9 +137,9 @@ __device__ __forceinline__ void quat_mul(const V* a, const V* b, V* o) {
 }
 
 // rotation matrix (row-major) of a unit quaternion
-template <class S>
-__device__ __forceinline__ void quat_to_rot(const S* q, S* R) {
-  const S x = q[0], y = q[1], z = q[2], w = q[3];
+template <class S, class V>
+__device__ __forceinline__ void quat_to_rot(const V* q, V* R) {
+  const V x = q[0], y = q[1], z = q[2], w = q[3];
   R[0] = S(1) - S(2) * (y * y + z * z);
   R[1] = S(2) * (x * y - w * z);
   R[2] = S(2) * (x * z + w * y);
@@ -145,6 +155,32 @@ template <class V>
 __device__ __forceinline__ void quat_normalize(V* q) {
   V n = vsqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
   for (int i = 0; i < 4; ++i) q[i] = q[i] / n;
+}
+
+// unit quaternion of a rotation matrix (row-major): Shepperd's method, the
+// candidate of the largest of the four diagonal sums (the first on ties),
+// whose square root is >= 1
+template <class S, class V>
+__device__ __noinline__ void rot_to_quat(const V* R, V* q) {
+  const V tr = R[0] + R[4] + R[8];
+  const V sc[4] = {S(1) + tr, S(1) + R[0] - R[4] - R[8], S(1) - R[0] + R[4] - R[8],
+                   S(1) - R[0] - R[4] + R[8]};
+  int best = 0;
+  for (int i = 1; i < 4; ++i)
+    if (pv(sc[i]) > pv(sc[best])) best = i;
+  V c[4];
+  if (best == 0) {
+    c[0] = R[7] - R[5]; c[1] = R[2] - R[6]; c[2] = R[3] - R[1]; c[3] = sc[0];
+  } else if (best == 1) {
+    c[0] = sc[1]; c[1] = R[1] + R[3]; c[2] = R[2] + R[6]; c[3] = R[7] - R[5];
+  } else if (best == 2) {
+    c[0] = R[1] + R[3]; c[1] = sc[2]; c[2] = R[5] + R[7]; c[3] = R[2] - R[6];
+  } else {
+    c[0] = R[2] + R[6]; c[1] = R[5] + R[7]; c[2] = sc[3]; c[3] = R[3] - R[1];
+  }
+  const V rs = vsqrt(sc[best]);
+  for (int i = 0; i < 4; ++i) q[i] = c[i] / rs * S(0.5);
+  quat_normalize(q);
 }
 
 // o = rotate(q, v) = v + w t + qv x t, t = 2 qv x v
@@ -557,7 +593,105 @@ __device__ __noinline__ void euler_next(const ModelDesc& d, const V* x, const V*
   integrate<S, V>(d, x, dx, xn);
 }
 
-// residual rows of slot k at (x, s); np: node parameter row
+// ---------------------------------------------------------------------------
+// operational frames
+// ---------------------------------------------------------------------------
+
+// world poses (p, R) or local spatial velocities of the bodies on the chain
+// from the base to body `body` (bodies come parent before child, so its
+// ancestors have smaller indices)
+template <class V>
+struct FrameKin {
+  V p[EM_MAX_BODIES][3];
+  V R[EM_MAX_BODIES][9];
+  V vel[EM_MAX_BODIES][6];
+};
+
+template <class S, class V>
+__device__ __noinline__ void frame_kinematics(const ModelDesc& d, const V* x, int body, bool vel,
+                                              FrameKin<V>& f) {
+  if (vel)
+    for (int i = 0; i < 6; ++i) f.vel[0][i] = x[d.nq + i];
+  else {
+    for (int i = 0; i < 3; ++i) f.p[0][i] = x[i];
+    quat_to_rot<S, V>(x + 3, f.R[0]);
+  }
+  for (int j = 0; j + 1 <= body; ++j) {
+    const int b = j + 1, par = d.parent[j];
+    V pj[3], Rj[9];
+    joint_placement<S, V>(d, j, x[7 + j], pj, Rj);
+    if (vel) {
+      S Sj[6];
+      joint_subspace<S>(d, j, Sj);
+      V vc[6];
+      motion_to_child(pj, Rj, f.vel[par], vc);
+      for (int i = 0; i < 6; ++i) f.vel[b][i] = vc[i] + Sj[i] * x[d.nq + 6 + j];
+    } else {
+      V r[3];
+      mv3(f.R[par], pj, r);
+      for (int i = 0; i < 3; ++i) f.p[b][i] = f.p[par][i] + r[i];
+      for (int rr = 0; rr < 3; ++rr)
+        for (int c = 0; c < 3; ++c)
+          f.R[b][3 * rr + c] = f.R[par][3 * rr] * Rj[c] + f.R[par][3 * rr + 1] * Rj[3 + c]
+                               + f.R[par][3 * rr + 2] * Rj[6 + c];
+    }
+  }
+}
+
+// residual rows of frame slot k at x (ref: its reference), as
+// costs.residual computes them: translation p - ref; rotation
+// log3(Rref' R); placement log6(Rref' (p - pref), Rref' R); velocity the
+// frame's local velocity - ref. log3 goes through the quaternion, whose log
+// takes the short way and its Taylor branch before any square root.
+template <class S, class V>
+__device__ __noinline__ void frame_residual(const ModelDesc& d, int k, const V* x, const S* ref,
+                                            V* r) {
+  const int kind = d.slot_kind[k], body = d.slot_body[k];
+  FrameKin<V> f;
+  frame_kinematics<S, V>(d, x, body, kind == EM_KIND_FRAME_VELOCITY, f);
+  V fp[3], fR[9];
+  for (int i = 0; i < 3; ++i) fp[i] = V(S(d.slot_fp[k][i]));
+  for (int i = 0; i < 9; ++i) fR[i] = V(S(d.slot_fR[k][i]));
+  if (kind == EM_KIND_FRAME_VELOCITY) {
+    V vf[6];
+    motion_to_child(fp, fR, f.vel[body], vf);
+    for (int i = 0; i < 6; ++i) r[i] = vf[i] - ref[i];
+    return;
+  }
+  // the frame's world pose
+  V pw[3], Rw[9];
+  mv3(f.R[body], fp, pw);
+  for (int i = 0; i < 3; ++i) pw[i] = f.p[body][i] + pw[i];
+  for (int rr = 0; rr < 3; ++rr)
+    for (int c = 0; c < 3; ++c)
+      Rw[3 * rr + c] = f.R[body][3 * rr] * fR[c] + f.R[body][3 * rr + 1] * fR[3 + c]
+                       + f.R[body][3 * rr + 2] * fR[6 + c];
+  if (kind == EM_KIND_FRAME_TRANSLATION) {
+    for (int i = 0; i < 3; ++i) r[i] = pw[i] - ref[i];
+    return;
+  }
+  // the pose relative to the reference: Rref' (p - pref), Rref' R
+  const S* qref = kind == EM_KIND_FRAME_ROTATION ? ref : ref + 3;
+  S Rref[9];
+  quat_to_rot<S, S>(qref, Rref);
+  V Rrel[9], q[4];
+  for (int rr = 0; rr < 3; ++rr)
+    for (int c = 0; c < 3; ++c)
+      Rrel[3 * rr + c] = Rref[rr] * Rw[c] + Rref[3 + rr] * Rw[3 + c] + Rref[6 + rr] * Rw[6 + c];
+  rot_to_quat<S, V>(Rrel, q);
+  if (kind == EM_KIND_FRAME_ROTATION) {
+    quat_log<S, V>(q, r);
+    return;
+  }
+  V dp[3], t[3];
+  for (int i = 0; i < 3; ++i) dp[i] = pw[i] - ref[i];
+  for (int i = 0; i < 3; ++i) t[i] = Rref[i] * dp[0] + Rref[3 + i] * dp[1] + Rref[6 + i] * dp[2];
+  log6<S, V>(t, q, r);
+}
+
+// residual rows of slot k at (x, s); np: node parameter row. A frame slot
+// computes the kinematics it needs from x itself, so a thread may take it
+// before the node's own tree pass has run.
 template <class S, class V>
 __device__ __noinline__ void slot_residual(const ModelDesc& d, int k, const V* x, const V* s,
                               const S* np, V* r) {
@@ -566,8 +700,10 @@ __device__ __noinline__ void slot_residual(const ModelDesc& d, int k, const V* x
     V xr[EM_MAX_NX];
     for (int i = 0; i < d.nq + d.nv; ++i) xr[i] = V(ref[i]);
     state_diff<S, V>(d, xr, x, r);
-  } else {
+  } else if (d.slot_kind[k] == EM_KIND_CONTROL) {
     for (int i = 0; i < d.nu; ++i) r[i] = s[i] - ref[i];
+  } else {
+    frame_residual<S, V>(d, k, x, ref, r);
   }
 }
 

@@ -30,7 +30,10 @@
 //    exp6(D0)^-1 (closed form) and ED the right Jacobian of exp6 at D0 (a
 //    dual column per lane). The x-only slots' Jacobians take one dual
 //    column per lane in the same pass: for a STATE slot only its 6 x 6
-//    base block (the rest is the identity).
+//    base block (the rest is the identity); a frame slot (placement,
+//    translation, rotation, velocity) all ndx columns of its rows, each
+//    column one evaluation of the frame's kinematics along the chain to its
+//    body and of its residual in dual numbers (model.cuh frame_residual).
 // 4. Gauss-Newton by slot structure (slot_on_x): Lx and Lxx from the x-only
 //    slots, a STATE slot through its base block; Lu and the diagonal Luu
 //    from the CONTROL slots, whose Jacobian is the identity on s; Lxu is
@@ -52,13 +55,15 @@
 
 #define K1_NODES 4   // nodes per block, one warp each
 // blocks per SM the register budget is cut for: 20 warps, which the
-// shared memory of a block (~34 KB in f32) also admits; it measured faster
-// than 16 warps at 128 registers
+// shared memory of a block (~34 KB in f32 on the carrot spec, 37 KB with
+// the weighted spec's frame rows) also admits; it measured faster than 16
+// warps at 128 registers. In f64 a block takes twice that (75 KB on the
+// weighted spec), so 3 blocks fit an SM; the launch is the same.
 #define K1_MIN_BLOCKS 5
 
 // A STATE residual (x (+) z) (-) ref has the Jacobian blockdiag(A, I), A
 // the 6 x 6 block of the base: only A takes dual passes and is stored.
-// Other x-only kinds (frame slots later) take every column and row.
+// The other x-only kinds, the frame slots, take every column and row.
 __host__ __device__ __forceinline__ bool slot_block_identity(const ModelDesc& d, int k) {
   return d.slot_kind[k] == EM_KIND_STATE;
 }
@@ -273,28 +278,42 @@ template <class S>
 __device__ __noinline__ void euler_adjoint(const S* D0, S* Ez) {
   S p[3], q[4], R[9];
   exp6<S, S>(D0, p, q);
-  quat_to_rot(q, R);
+  quat_to_rot<S, S>(q, R);
   for (int e = 0; e < EM_BASE_NDX * EM_BASE_NDX; ++e) Ez[e] = xform_entry<S, S>(R, p, e);
 }
 
-// one dual column: rows r < nr of d/dt integrate(x, D0 + t e_i) (-) target
-// at t = 0 (D0 null for a zero increment) into col[r * stride]; the values
-// of rows r < nvals into vals when given
+// one dual column of the Euler step's base block: rows r < 6 of
+// d/dt integrate(x, D0 + t e_i) (-) target at t = 0 into col[r * stride]
 template <class S>
 __device__ __noinline__ void dual_column(const ModelDesc& d, const S* x, int i, const S* D0,
-                                         const S* target, int nr, S* col, int stride,
-                                         int nvals, S* vals) {
+                                         const S* target, S* col, int stride) {
   typedef Dual<S> D;
   const int nx = d.nq + d.nv, ndx = 2 * d.nv;
   D xd[EM_MAX_NX], z[EM_MAX_NDX], y[EM_MAX_NX];
   for (int c = 0; c < nx; ++c) xd[c] = D(x[c]);
-  for (int c = 0; c < ndx; ++c) z[c] = D(D0 ? D0[c] : S(0), S(c == i ? 1 : 0));
+  for (int c = 0; c < ndx; ++c) z[c] = D(D0[c], S(c == i ? 1 : 0));
   integrate<S, D>(d, xd, z, y);
   for (int c = 0; c < nx; ++c) xd[c] = D(target[c]);
   state_diff<S, D>(d, xd, y, z);
-  for (int r = 0; r < nr; ++r) col[r * stride] = z[r].d;
+  for (int r = 0; r < EM_BASE_NDX; ++r) col[r * stride] = z[r].d;
+}
+
+// one dual column of x-only slot k: rows r < nr of d/dt r_k(x (+) t e_i) at
+// t = 0 into col[r * stride]; the values of all its rows into vals when
+// given
+template <class S>
+__device__ __noinline__ void slot_column(const ModelDesc& d, const S* x, int k, int i,
+                                         const S* np, int nr, S* col, int stride, S* vals) {
+  typedef Dual<S> D;
+  const int nx = d.nq + d.nv, ndx = 2 * d.nv;
+  D xd[EM_MAX_NX], z[EM_MAX_NDX], y[EM_MAX_NX], r[EM_MAX_NR];
+  for (int c = 0; c < nx; ++c) xd[c] = D(x[c]);
+  for (int c = 0; c < ndx; ++c) z[c] = D(S(0), S(c == i ? 1 : 0));
+  integrate<S, D>(d, xd, z, y);
+  slot_residual<S, D>(d, k, y, nullptr, np, r);
+  for (int q = 0; q < nr; ++q) col[q * stride] = r[q].d;
   if (vals)
-    for (int r = 0; r < nvals; ++r) vals[r] = z[r].v;
+    for (int q = 0; q < d.slot_nr[k]; ++q) vals[q] = r[q].v;
 }
 
 template <class S>
@@ -362,8 +381,7 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
   if (lane == 0) euler_adjoint<S>(W.inc, Ez);
   for (int task = lane; task < EM_BASE_NDX + lay.n_tasks; task += 32) {
     if (task < EM_BASE_NDX) {
-      dual_column<S>(d, W.xt, task, W.inc, W.xc, EM_BASE_NDX, ED + task, EM_BASE_NDX, 0,
-                     nullptr);
+      dual_column<S>(d, W.xt, task, W.inc, W.xc, ED + task, EM_BASE_NDX);
       continue;
     }
     int k = 0, row = 0, xrow = 0, j = task - EM_BASE_NDX;
@@ -376,8 +394,8 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
       }
       row += d.slot_nr[k];
     }
-    dual_column<S>(d, W.xt, j, nullptr, np + d.slot_ref_off[k], slot_jac_rows(d, k),
-                   Jx + xrow * ndx + j, ndx, d.slot_nr[k], j == 0 ? val + row : nullptr);
+    slot_column<S>(d, W.xt, k, j, np, slot_jac_rows(d, k), Jx + xrow * ndx + j, ndx,
+                   j == 0 ? val + row : nullptr);
   }
   for (int k = 0, row = 0; k < K; row += d.slot_nr[k], ++k)
     if (!slot_on_x(d.slot_kind[k])) {

@@ -32,8 +32,10 @@
 //   entry per thread, the mass matrix a joint column per thread, the
 //   Cholesky factor a column per barrier; the chains down and up the tree,
 //   the solve and the Euler step on the group's first thread, while the
-//   other threads take the running cost a slot each. The group's working
-//   set lives in shared memory.
+//   other threads take the running cost a slot each. A frame slot's
+//   thread computes the kinematics of the frame's chain from x_try itself
+//   (model.cuh frame_residual), so it reads nothing the first thread is
+//   still writing. The group's working set lives in shared memory.
 // - xs_try and us_try leave per node as contiguous runs written by the
 //   group; cs is staged for the whole horizon and leaves as one run per
 //   lane.

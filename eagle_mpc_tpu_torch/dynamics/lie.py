@@ -86,6 +86,33 @@ def quat_to_rot(q):
     return r.reshape(q.shape[:-1] + (3, 3))
 
 
+def rot_to_quat(R):
+    """3x3 rotation matrix -> unit quaternion (x, y, z, w): branch-free
+    Shepperd, the candidate of the largest diagonal term (first on ties)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def cand(a, b, c, d, s):
+        # s = 4 q_k^2, > 0 on the branch that is kept
+        return (torch.stack([a, b, c, d], dim=-1)
+                / torch.sqrt(_safe_nonzero(s)).unsqueeze(-1))
+
+    s_w = 1.0 + tr
+    s_x = 1.0 + m00 - m11 - m22
+    s_y = 1.0 - m00 + m11 - m22
+    s_z = 1.0 - m00 - m11 + m22
+    qs = torch.stack([
+        cand(m21 - m12, m02 - m20, m10 - m01, s_w, s_w),
+        cand(s_x, m01 + m10, m02 + m20, m21 - m12, s_x),
+        cand(m01 + m10, s_y, m12 + m21, m02 - m20, s_y),
+        cand(m02 + m20, m12 + m21, s_z, m10 - m01, s_z)], dim=-2)
+    idx = torch.argmax(torch.stack([s_w, s_x, s_y, s_z], dim=-1), dim=-1)
+    q = torch.take_along_dim(qs, idx[..., None, None], dim=-2)[..., 0, :]
+    return quat_normalize(q * 0.5)
+
+
 def quat_exp(w):
     """Rotation vector -> unit quaternion."""
     t2 = torch.sum(w * w, dim=-1, keepdim=True)
@@ -133,6 +160,12 @@ def exp3(w):
     W = hat(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
     return eye + a[..., None, None] * W + b[..., None, None] * (W @ W)
+
+
+def log3(R):
+    """Rotation matrix -> rotation vector, through the quaternion (the
+    short way round, derivatives finite at the identity)."""
+    return quat_log(rot_to_quat(R))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Free-flyer rigid-body dynamics: RNEA, CRBA and forward dynamics.
 
 PyTorch counterpart of the free-dynamics part of
-``eagle_mpc_tpu.dynamics.rbd`` (contacts and frame kinematics come later).
+``eagle_mpc_tpu.dynamics.rbd`` and its frame kinematics (contacts come
+later).
 The kinematic tree is the port's ``RobotModel`` (``dynamics.model``); its
 constants are turned into tensors once per (model, device, dtype).
 Every function takes (..., nq) / (..., nv) tensors with any leading batch
@@ -171,3 +172,58 @@ def crba(model: RobotModel, q):
 def fwd_dynamics(model: RobotModel, q, v, tau):
     """a = M(q)^{-1} (tau - b(q, v)) via Cholesky (NaN where M is not PD)."""
     return smallmat.solve_psd(crba(model, q), tau - bias_force(model, q, v))
+
+
+# ---------------------------------------------------------------------------
+# Frame kinematics (operational-space costs)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def frame_tensors(model: RobotModel, frame_id: int, device, dtype):
+    """(p, R) of an operational frame in its body, as tensors."""
+    f = model.frames[frame_id]
+    return (torch.as_tensor(f.p, dtype=dtype, device=device),
+            torch.as_tensor(f.R, dtype=dtype, device=device))
+
+
+def body_world_placements(model: RobotModel, q):
+    """World pose (p, R) of every body frame: two lists of nj+1 tensors."""
+    mt = model_tensors(model, q.device, q.dtype)
+    pw: List = [q[..., :3]]
+    Rw: List = [lie.quat_to_rot(q[..., 3:7])]
+    for j in range(model.nj):
+        p, R, _ = _joint_kinematics(model, mt, j, q[..., 7 + j])
+        parent = model.parent[j]
+        pw.append(pw[parent] + lie.matvec(Rw[parent], p))
+        Rw.append(Rw[parent] @ R)
+    return pw, Rw
+
+
+def frame_pose_from(model: RobotModel, frame_id: int, pw, Rw):
+    """World pose (p, R) of an operational frame from the bodies' poses."""
+    fp, fR = frame_tensors(model, frame_id, pw[0].device, pw[0].dtype)
+    b = model.frames[frame_id].body
+    return pw[b] + lie.matvec(Rw[b], fp), Rw[b] @ fR
+
+
+def frame_placement(model: RobotModel, q, frame_id: int):
+    """World pose (p, R) of an operational frame."""
+    return frame_pose_from(model, frame_id, *body_world_placements(model, q))
+
+
+def body_velocities(model: RobotModel, q, v):
+    """Local spatial velocity of every body: a list of nj+1 tensors."""
+    return _tree_kinematics(model, model_tensors(model, q.device, q.dtype),
+                            q, v)[3]
+
+
+def frame_velocity_from(model: RobotModel, frame_id: int, vel):
+    """Spatial velocity of a frame expressed in the frame (LOCAL), from the
+    bodies' local velocities."""
+    fp, fR = frame_tensors(model, frame_id, vel[0].device, vel[0].dtype)
+    return spatial.motion_to_child(fp, fR, vel[model.frames[frame_id].body])
+
+
+def frame_velocity(model: RobotModel, q, v, frame_id: int):
+    """Spatial velocity of a frame, expressed in the frame (LOCAL)."""
+    return frame_velocity_from(model, frame_id, body_velocities(model, q, v))

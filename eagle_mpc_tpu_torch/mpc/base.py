@@ -27,6 +27,14 @@ _INTEGRATOR_MAP = {
 }
 
 
+def _try_param(getter, key, default):
+    """``getter(key)``, or ``default`` where the YAML leaves the key out."""
+    try:
+        return getter(key)
+    except cspecs.MissingValueException:
+        return default
+
+
 @dataclasses.dataclass
 class MpcAbstract:
     """Shared construction + solve plumbing; subclasses fill ``spec`` and
@@ -131,16 +139,22 @@ class MpcAbstract:
 
 
 def make_reference_sampler(state, state_ref: np.ndarray, t_ref: np.ndarray,
-                           device, dtype) -> Callable:
+                           device, dtype, hold_yaw_only: bool = False) -> Callable:
     """Sampler of the offline reference trajectory at times t_ms (any
     shape) -> (..., nx). Configurations follow the free-flyer geodesic and
     velocities are linear; past the last sample the final configuration is
-    held at zero velocity."""
+    held at zero velocity, with only the yaw of its attitude under
+    ``hold_yaw_only`` (RailMpc's hold)."""
     ref = torch.as_tensor(np.asarray(state_ref), dtype=dtype, device=device)
     t_ref_t = torch.as_tensor(np.asarray(t_ref), dtype=dtype, device=device)
     N, nq = ref.shape[0], state.nq
-    x_hold = torch.cat([ref[-1, :nq], torch.zeros(state.nv, dtype=dtype,
-                                                  device=device)])
+    q_hold = np.array(state_ref[-1, :nq], dtype=np.float64)
+    if hold_yaw_only:
+        # quaternion (x, y, z, w): keep (z, w)
+        quat = np.array([0.0, 0.0, q_hold[5], q_hold[6]])
+        q_hold[3:7] = quat / np.linalg.norm(quat)
+    x_hold = torch.as_tensor(np.concatenate([q_hold, np.zeros(state.nv)]),
+                             dtype=dtype, device=device)
 
     def sample(t_ms):
         idx = torch.searchsorted(t_ref_t, t_ms.contiguous(), right=True)
@@ -155,6 +169,12 @@ def make_reference_sampler(state, state_ref: np.ndarray, t_ref: np.ndarray,
         return torch.where(hold.unsqueeze(-1), x_hold, torch.cat([q, v], dim=-1))
 
     return sample
+
+
+def stage_index(t_stages, t):
+    """upper_bound(t_stages, t) - 1 over a small boundary table: the index
+    of the stage that has begun by time t (-1 before the first)."""
+    return (t[..., None] >= t_stages).sum(dim=-1) - 1
 
 
 def stage_boundaries(stages, dt_ms: int) -> np.ndarray:

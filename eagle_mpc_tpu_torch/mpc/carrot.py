@@ -42,13 +42,8 @@ class CarrotMpc(base.MpcAbstract):
         ndx, nu, nx = state.ndx, mp.platform.nu, state.nx
         server = mp.server
         pre = "mpc_controller/"
-
-        def opt(getter, key, default):
-            try:
-                return getter(pre + key)
-            except cspecs.MissingValueException:
-                return default
-
+        opt = lambda getter, key, default: base._try_param(
+            getter, pre + key, default)
         g, gv = server.get_double, server.get_vector
         carrot_weight = opt(g, "carrot_weight", 10.0)
         tail_weight = opt(g, "carrot_tail_weight", 5.0)

@@ -1,6 +1,6 @@
-"""Cost slots, activations and the STATE/CONTROL residuals (counterpart of
-``eagle_mpc_tpu.ocp.costs``; the frame and friction-cone residuals come
-later).
+"""Cost slots, activations and the STATE, CONTROL and operational-frame
+residuals (counterpart of ``eagle_mpc_tpu.ocp.costs``; the friction-cone
+residual comes with contacts).
 
 Cost = weight * a(r(x, u)) with Gauss-Newton derivatives
 L = w * (R' Ar, R' diag(Arr) R), as in Crocoddyl.
@@ -12,6 +12,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..dynamics import lie, rbd
+
 # slot kinds
 STATE = "state"
 CONTROL = "control"
@@ -22,7 +24,17 @@ FRAME_VELOCITY = "frame_velocity"
 FRICTION_CONE = "friction_cone"
 
 #: kinds this package evaluates
-SUPPORTED_KINDS = (STATE, CONTROL)
+SUPPORTED_KINDS = (STATE, CONTROL, FRAME_PLACEMENT, FRAME_TRANSLATION,
+                   FRAME_ROTATION, FRAME_VELOCITY)
+
+#: reference sizes of the frame kinds
+REF_DIMS = {
+    FRAME_PLACEMENT: 7,     # p (3) + quat (4)
+    FRAME_TRANSLATION: 3,
+    FRAME_ROTATION: 4,      # quat
+    FRAME_VELOCITY: 6,      # [linear, angular] LOCAL
+}
+_POSE_KINDS = (FRAME_PLACEMENT, FRAME_TRANSLATION, FRAME_ROTATION)
 
 # activation kinds
 QUAD = "quad"
@@ -63,10 +75,41 @@ def activation(kind: str, r, w, lb, ub):
     raise ValueError(f"unknown activation kind {kind}")
 
 
-def residual(state, slot: CostSlot, ref, x, u):
-    """Residual of a STATE or CONTROL slot; ``u`` is the pre-squash control."""
+class FkCache(NamedTuple):
+    """Forward kinematics at one evaluation point, shared by its frame
+    slots: per-body world poses and local velocities (None where no slot
+    needs them)."""
+
+    pw: Optional[list] = None    # per-body world translation
+    Rw: Optional[list] = None    # per-body world rotation
+    vel: Optional[list] = None   # per-body local spatial velocity
+
+
+def build_fk_cache(model, slots, q, v) -> FkCache:
+    pw = Rw = vel = None
+    if any(s.kind in _POSE_KINDS for s in slots):
+        pw, Rw = rbd.body_world_placements(model, q)
+    if any(s.kind == FRAME_VELOCITY for s in slots):
+        vel = rbd.body_velocities(model, q, v)
+    return FkCache(pw, Rw, vel)
+
+
+def residual(model, state, slot: CostSlot, ref, cache: FkCache, x, u):
+    """Residual of one slot at (x, u) with ``cache`` built at x; ``u`` is
+    the pre-squash control."""
     if slot.kind == STATE:
         return state.diff(ref, x)
     if slot.kind == CONTROL:
         return u - ref
-    raise NotImplementedError(f"cost kind {slot.kind!r} is not ported yet")
+    if slot.kind == FRAME_VELOCITY:
+        return rbd.frame_velocity_from(model, slot.frame_id, cache.vel) - ref
+    if slot.kind not in _POSE_KINDS:
+        raise NotImplementedError(f"cost kind {slot.kind!r} is not ported yet")
+    p, R = rbd.frame_pose_from(model, slot.frame_id, cache.pw, cache.Rw)
+    if slot.kind == FRAME_TRANSLATION:
+        return p - ref
+    if slot.kind == FRAME_ROTATION:
+        return lie.log3(lie.quat_to_rot(ref).transpose(-1, -2) @ R)
+    RrefT = lie.quat_to_rot(ref[..., 3:7]).transpose(-1, -2)
+    return lie.log6(lie.matvec(RrefT, p - ref[..., :3]),
+                    lie.rot_to_quat(RrefT @ R))

@@ -1,7 +1,8 @@
 """The shooting OCP as (static spec, parameter tensors).
 
 PyTorch counterpart of ``eagle_mpc_tpu.ocp.problem`` for free dynamics,
-the symplectic-Euler integrator and STATE/CONTROL cost slots:
+the symplectic-Euler integrator and STATE/CONTROL/operational-frame cost
+slots:
 
 - ``ProblemSpec``: static structure (robot model, cost slots, horizon, dt);
 - ``ProblemParams``: tensors a controller changes at run time (per-node
@@ -173,15 +174,19 @@ def _dam(spec: ProblemSpec, glob: GlobalParams, x, s):
 
 
 def _point_residuals(spec: ProblemSpec, view: NodeView, x, s, terminal: bool):
-    """Residual of every slot; control slots are zero at the terminal node."""
+    """Residual of every slot; control slots are zero at the terminal node.
+    The frame slots share one forward-kinematics cache built at x."""
     st = spec.state
+    cache = C.build_fk_cache(spec.model, spec.slots, x[..., :st.nq],
+                             x[..., st.nq:])
     rs = []
     for k, slot in enumerate(spec.slots):
         if terminal and slot.kind == C.CONTROL:
             rs.append(torch.zeros(x.shape[:-1] + (slot.nr,), dtype=x.dtype,
                                   device=x.device))
         else:
-            rs.append(C.residual(st, slot, view.refs[k], x, s))
+            rs.append(C.residual(spec.model, st, slot, view.refs[k], cache,
+                                 x, s))
     return rs
 
 

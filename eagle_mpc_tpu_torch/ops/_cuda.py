@@ -44,7 +44,8 @@ MAX_NV = 6 + MAX_NJ
 MAX_NU = 12
 MAX_SLOTS = 8
 
-_KIND = {C.STATE: 0, C.CONTROL: 1}
+_KIND = {C.STATE: 0, C.CONTROL: 1, C.FRAME_PLACEMENT: 2,
+         C.FRAME_TRANSLATION: 3, C.FRAME_ROTATION: 4, C.FRAME_VELOCITY: 5}
 _ACT = {C.QUAD: 0, C.WQUAD: 1, C.QBARRIER: 2, C.WQBARRIER: 3}
 
 
@@ -57,6 +58,8 @@ class ModelDesc(ctypes.Structure):
         ("tau_f", ctypes.c_double * (6 * MAX_NU)),
         ("gravity", ctypes.c_double),
         ("dt", ctypes.c_double),
+        ("slot_fp", ctypes.c_double * (MAX_SLOTS * 3)),
+        ("slot_fR", ctypes.c_double * (MAX_SLOTS * 9)),
         ("parent", ctypes.c_int * MAX_NJ),
         ("joint_type", ctypes.c_int * MAX_NJ),
         ("nj", ctypes.c_int), ("nq", ctypes.c_int), ("nv", ctypes.c_int),
@@ -69,6 +72,7 @@ class ModelDesc(ctypes.Structure):
         ("slot_nr", ctypes.c_int * MAX_SLOTS),
         ("slot_ref_off", ctypes.c_int * MAX_SLOTS),
         ("slot_glob_off", ctypes.c_int * MAX_SLOTS),
+        ("slot_body", ctypes.c_int * MAX_SLOTS),
     ]
 
 
@@ -228,6 +232,11 @@ def make_descriptor(spec: P.ProblemSpec) -> ModelDesc:
         d.slot_nr[k] = s.nr
         d.slot_ref_off[k] = ref_off
         d.slot_glob_off[k] = glob_off
+        if s.kind in C.REF_DIMS:
+            f = m.frames[s.frame_id]
+            d.slot_body[k] = f.body
+            d.slot_fp[3 * k:3 * k + 3] = np.asarray(f.p, float).reshape(-1).tolist()
+            d.slot_fR[9 * k:9 * k + 9] = np.asarray(f.R, float).reshape(-1).tolist()
         ref_off += s.ref_dim
         glob_off += 3 * s.nr
     d.n_res = sum(s.nr for s in spec.slots)

@@ -1,11 +1,12 @@
 """Profile the port's flagship tick on one card: where the time goes.
 
-    python3 -m eagle_mpc_tpu_torch.profile_tick
+    python3 -m eagle_mpc_tpu_torch.profile_tick [carrot|weighted|rail]
 
-Runs the cell of ``chip_smoke.py`` (hexacopter370_flying_arm_3 displacement,
-offline reference, B=512, float32): the depth-30 warm start and one settle
-chunk of 10 chained ticks, then 3 ticks unprofiled (the tick time) and 3
-more under ``torch.profiler``, with the solver's named functions wrapped in
+Runs a path of ``chip_smoke.py`` (hexacopter370_flying_arm_3 displacement,
+offline reference, B=512, float32; the carrot path by default, from its
+start time): the depth-30 warm start and one settle chunk of 10 chained
+ticks, then 3 ticks unprofiled (the tick time) and 3 more under
+``torch.profiler``, with the solver's named functions wrapped in
 ``torch.profiler.record_function`` for that window only. Prints the card's
 name and power limit, the span table (ms per call under the profiler,
 calls per tick), the three kernels' device time per launch, and the device
@@ -24,16 +25,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TICKS = 3
 
 
-def _spans():
+def _spans(ctrl_cls):
     """(owner, attribute, span name) of each function the profile wraps."""
-    from .mpc import CarrotMpc
     from .ocp import problem as P
     from .ops import node_cuda, riccati_cuda, rollout_cuda
     from .sim import AerialSimulator
     from .solvers import fddp
 
     return [
-        (CarrotMpc, "update_problem", "update_problem"),
+        (ctrl_cls, "update_problem", "update_problem"),
         (fddp, "_fixed_iteration", "fixed_iteration"),
         (fddp, "solve_while_fixed_body", "polish_while_fixed"),
         (P, "terminal_calc_diff", "terminal_calc_diff"),
@@ -68,8 +68,8 @@ def _device_us(evt):
     return evt.self_device_time_total
 
 
-def profile(device, batch):
-    """Warm start, settle, time and profile the cell on ``device`` (float32,
+def profile(device, batch, path="carrot"):
+    """Warm start, settle, time and profile a path on ``device`` (float32,
     ``batch`` scenarios) with ``chip_smoke``'s warm start and tick; prints
     the report."""
     import torch
@@ -78,9 +78,10 @@ def profile(device, batch):
 
     dtype = torch.float32
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    ctrl, sim, ref, hover, n_rot = cs.flagship(device, dtype)
+    controller, t0, _, _, _ = cs.PATHS[path]
+    ctrl, sim, ref, hover, n_rot = cs.flagship(device, dtype, controller)
     B = batch
-    t_ms = cs.T0 - cs.TICKS * cs.DT_SIM
+    t_ms = t0 - cs.TICKS * cs.DT_SIM
     xb, xs, us = cs.initial_batch(ctrl, ref, hover, n_rot, B, t_ms, device, dtype)
 
     def tick(state):
@@ -99,7 +100,7 @@ def profile(device, batch):
     sync()
     tick_ms = (time.perf_counter() - t0) / TICKS * 1e3
 
-    spans = _spans()
+    spans = _spans(type(ctrl))
     originals = [getattr(owner, attr) for owner, attr, _ in spans]
     for (owner, attr, name), fn in zip(spans, originals):
         setattr(owner, attr, _wrap(fn, name))
@@ -121,7 +122,7 @@ def profile(device, batch):
 
     events = prof.key_averages()
     by_key = {e.key: e for e in events if e.device_type == DeviceType.CPU}
-    print(f"tick f32 B={B}: {tick_ms:.3f} ms unprofiled, "
+    print(f"{path} tick f32 B={B}: {tick_ms:.3f} ms unprofiled, "
           f"{wall_ms / TICKS:.3f} ms under the profiler ({TICKS} ticks each)",
           flush=True)
     print("| Span (profiled) | ms per call | calls per tick |")
@@ -144,7 +145,7 @@ def profile(device, batch):
           "device operations per tick", flush=True)
 
 
-def main():
+def main(args):
     import torch
 
     if not torch.cuda.is_available():
@@ -158,9 +159,10 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    profile(torch.device("cuda", 0), cs.BATCH)
+    for path in args or ["carrot"]:
+        profile(torch.device("cuda", 0), cs.BATCH, path)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -2,19 +2,17 @@
 package (float64, CPU): the converted parameters, ``update_problem``
 across stage transitions and the carrot tail, and the RK4 plant step."""
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from eagle_mpc_tpu.ocp import problem as JP
-from eagle_mpc_tpu.sim import AerialSimulator as JaxSimulator
 from eagle_mpc_tpu_torch import convert
 from eagle_mpc_tpu_torch.ocp import problem as P
 from eagle_mpc_tpu_torch.sim import AerialSimulator
 
-from torch_port_util import CPU, F64, controllers, load, load_port, rand_states, t
+from torch_port_util import (CPU, F64, FIXTURE, controllers, load_port,
+                             rand_states, t)
 
 
 @pytest.fixture(scope="module")
@@ -57,14 +55,15 @@ def test_update_problem_matches_jax(ctrls, t_ms):
 
 
 def test_sim_step_matches_jax():
-    mp = load("hexacopter370_flying_arm_3")[1]
+    """One 2 ms RK4 step from random states against the JAX plant's
+    (``sim_*`` of the flagship fixture)."""
     tmp = load_port("hexacopter370_flying_arm_3")[1]
-    jsim = JaxSimulator.from_platform(mp.model, mp.platform, dt_ms=2)
     tsim = AerialSimulator.from_platform(tmp.model, tmp.platform, 2,
                                          device=CPU, dtype=F64)
-    x = rand_states(mp.model, 4, 11)
-    u = np.random.default_rng(12).uniform(0.0, 5.0, size=(4, mp.platform.nu))
-    want = jax.vmap(jsim.step)(jnp.asarray(x), jnp.asarray(u))
+    fx = np.load(FIXTURE)
+    x = rand_states(tmp.model, 4, 11)
+    u = np.random.default_rng(12).uniform(0.0, 5.0, size=(4, tmp.platform.nu))
+    assert np.array_equal(x, fx["sim_x"]) and np.array_equal(u, fx["sim_u"])
     got = tsim.step(t(x), t(u))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+    np.testing.assert_allclose(got.numpy(), fx["sim_x_next"], rtol=0,
                                atol=1e-12)

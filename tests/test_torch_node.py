@@ -6,25 +6,26 @@ The port's ``calc_diff_all`` on the CPU runs ``problem.node_calc_diff``
 over the flattened nodes; it is held against the JAX package's XLA path
 (``pallas_nodes=False``) for the flagship CarrotMpc at B=2 on the
 perturbed candidates of tests/test_node_pallas.py, at t in {500, 3500} ms,
-to 1e-10 relative to each field's largest entry (float64).
+to 1e-10 relative to each field's largest entry (float64). The JAX values
+(and those of ``total_cost``) are the fixture's (``cd_*``, ``tc_*`` in
+tests/fixtures/torch_port_flagship.npz, from
+tools/make_torch_port_fixtures.py): jit-compiling them here took most of
+these tests' time.
 """
 
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from eagle_mpc_tpu.ocp import problem as JP
 from eagle_mpc_tpu_torch.dynamics import rbd
 from eagle_mpc_tpu_torch.ocp import actuation as act
 from eagle_mpc_tpu_torch.ocp import costs as C
 from eagle_mpc_tpu_torch.ocp import problem as P
 from eagle_mpc_tpu_torch.ops import _cuda, node_cuda, riccati_cuda, rollout_cuda
 
-from torch_port_util import candidates, controllers, rel_err, t
+from torch_port_util import FIXTURE, candidates, controllers, rel_err, t
 
 TOL = 1e-10
 B = 2
@@ -37,22 +38,16 @@ def ctrls():
 
 def test_calc_diff_all_matches_jax(ctrls):
     jc, tc = ctrls
+    fx = np.load(FIXTURE)
     xs, us = candidates(jc.spec, jc.params0.x0, B)
-    t_ms = np.array([500.0, 3500.0])
-
-    def jax_cd(t1, xs1, us1):
-        p = jc.update_problem(t1, JP.as_device(jc.params0)._replace(x0=xs1[0]))
-        return JP.calc_diff_all(jc.spec, p, xs1, us1, pallas_nodes=False)
-
-    want, want_term = jax.jit(jax.vmap(jax_cd))(jnp.asarray(t_ms),
-                                                jnp.asarray(xs), jnp.asarray(us))
+    assert np.array_equal(xs, fx["cd_xs"]) and np.array_equal(us, fx["cd_us"])
     params = tc.update_problem(
-        t(t_ms), P.expand_params(tc.params0, B)._replace(x0=t(xs[:, 0])))
+        t(fx["cd_t"]), P.expand_params(tc.params0, B)._replace(x0=t(xs[:, 0])))
     got, got_term = P.calc_diff_all(tc.spec, params, t(xs), t(us))
-    for name in want._fields:
-        assert rel_err(getattr(want, name), getattr(got, name)) < TOL, name
-    for a, b in zip(want_term, got_term):
-        assert rel_err(a, b) < TOL
+    for name in got._fields:
+        assert rel_err(fx[f"cd_{name}"], getattr(got, name)) < TOL, name
+    for name, b in zip(("cost", "Lx", "Lxx"), got_term):
+        assert rel_err(fx[f"cd_term_{name}"], b) < TOL, name
 
 
 def test_dynamics_jacobian_by_implicit_function(ctrls):
@@ -103,14 +98,13 @@ def test_lxu_is_zero_for_state_and_control_slots(ctrls):
 
 def test_total_cost_matches_jax(ctrls):
     jc, tc = ctrls
+    fx = np.load(FIXTURE)
     xs, us = candidates(jc.spec, jc.params0.x0, B, seed=1)
-    want = [JP.total_cost(jc.spec, jc.update_problem(
-        3500.0, JP.as_device(jc.params0)._replace(x0=jnp.asarray(xs[b, 0]))),
-        jnp.asarray(xs[b]), jnp.asarray(us[b])) for b in range(B)]
+    assert np.array_equal(xs, fx["tc_xs"]) and np.array_equal(us, fx["tc_us"])
     params = tc.update_problem(
-        t([3500.0] * B), P.expand_params(tc.params0, B)._replace(x0=t(xs[:, 0])))
+        t(fx["tc_t"]), P.expand_params(tc.params0, B)._replace(x0=t(xs[:, 0])))
     got = P.total_cost(tc.spec, params, t(xs), t(us))
-    assert rel_err(np.array(want), got) < TOL
+    assert rel_err(fx["tc_cost"], got) < TOL
 
 
 def test_pack_params_matches_descriptor(ctrls):
@@ -146,20 +140,29 @@ def test_pack_params_matches_descriptor(ctrls):
 
 
 @pytest.mark.parametrize("change", ["rk4", "no_slots", "frame_cost",
-                                    "contacts"])
+                                    "contacts", "friction_cone"])
 def test_out_of_scope_spec_raises(ctrls, change):
-    """The kernels take free dynamics, Euler and STATE/CONTROL slots; any
-    other spec raises instead of running a different path."""
+    """The kernels take free dynamics, Euler and up to 8 STATE / CONTROL /
+    frame slots; any other spec raises instead of running a different path
+    (frame_cost: a frame slot past the 8 the kernels hold)."""
     spec = ctrls[1].spec
+    grip = C.CostSlot("grip", C.FRAME_TRANSLATION, C.QUAD, 3, 3, frame_id=0)
     bad = {
         "rk4": dict(integrator=P.RK4),
         "no_slots": dict(slots=()),
-        "frame_cost": dict(slots=spec.slots + (C.CostSlot(
-            "grip", C.FRAME_TRANSLATION, C.QUAD, 3, 3, frame_id=0),)),
+        "frame_cost": dict(slots=spec.slots + (grip,) * (
+            _cuda.MAX_SLOTS + 1 - len(spec.slots))),
         "contacts": dict(contacts=("gripper",)),
+        "friction_cone": dict(slots=spec.slots + (C.CostSlot(
+            "cone", C.FRICTION_CONE, C.QBARRIER, 5, 0, frame_id=0,
+            contact_id=0),)),
     }[change]
     with pytest.raises(NotImplementedError):
         _cuda.make_descriptor(dataclasses.replace(spec, **bad))
+    # a frame slot inside the maximum is taken
+    if change == "frame_cost":
+        _cuda.make_descriptor(dataclasses.replace(
+            spec, slots=spec.slots + (grip,) * (_cuda.MAX_SLOTS - len(spec.slots))))
 
 
 def test_wrappers_refuse_other_devices(ctrls):

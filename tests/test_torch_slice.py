@@ -80,6 +80,7 @@ def test_port_runs_without_jax():
     CPU tick at B=2 never imports jax, the JAX package or ``tools``."""
     code = """
 import sys, torch
+torch.set_num_threads(1)
 from eagle_mpc_tpu_torch.config import load_mpc_params, load_ref, load_trajectory
 from eagle_mpc_tpu_torch.mpc import CarrotMpc
 from eagle_mpc_tpu_torch.ocp import problem as P
@@ -116,30 +117,36 @@ print("ok")
 @pytest.mark.cuda
 def test_kernels_match_plain_on_cuda():
     """Each kernel against its plain version on the card, float64, at the
-    fixture's tick state (runs where CUDA is present; needs no jax, so it
-    also runs with ``--noconftest`` on a machine without it)."""
+    tick state of the carrot fixture and of the weighted one (whose spec has
+    every frame kind: K1's frame columns, K2's frame costs); runs where
+    CUDA is present; needs no jax, so it also runs with ``--noconftest`` on
+    a machine without it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py checks the kernels "
                     "on the card")
     sys.path.insert(0, ROOT)
     import chip_smoke
 
-    fx = np.load(FIXTURE)
     dev = torch.device("cuda")
-    ctrl = chip_smoke.flagship(dev, torch.float64)[0]
-    state = (float(fx["tick_t"][0]), torch.as_tensor(fx["x0"]),
-             torch.as_tensor(fx["tick_xs_in"]), torch.as_tensor(fx["tick_us_in"]))
-    params, xs, us, feas = chip_smoke.parity_inputs(ctrl, state, dev,
-                                                    torch.float64)
-    calls = chip_smoke.kernel_calls(ctrl, params, xs, us, feas, reg=1e-2)
-    for name, (kern, plain, _, _) in calls.items():
-        got, want = kern(), plain()
-        if name == "alpha_rollout":
-            lanes = chip_smoke._healthy_lanes(want)
-            assert torch.equal(lanes, chip_smoke._healthy_lanes(got))
-            got, want = [g[lanes] for g in got], [w[lanes] for w in want]
-        for w, g in zip(want, got):
-            assert chip_smoke._err(w, g)[1] < chip_smoke.PARITY_RTOL, name
+    for controller in ("weighted", "carrot"):
+        fx = np.load(os.path.join(ROOT, "tests", "fixtures",
+                                  chip_smoke.FIXTURES[controller]))
+        ctrl = chip_smoke.flagship(dev, torch.float64, controller)[0]
+        state = (float(fx["tick_t"][0]), torch.as_tensor(fx["x0"]),
+                 torch.as_tensor(fx["tick_xs_in"]),
+                 torch.as_tensor(fx["tick_us_in"]))
+        params, xs, us, feas = chip_smoke.parity_inputs(ctrl, state, dev,
+                                                        torch.float64)
+        calls = chip_smoke.kernel_calls(ctrl, params, xs, us, feas, reg=1e-2)
+        for name, (kern, plain, _, _) in calls.items():
+            got, want = kern(), plain()
+            if name == "alpha_rollout":
+                lanes = chip_smoke._healthy_lanes(want)
+                assert torch.equal(lanes, chip_smoke._healthy_lanes(got))
+                got, want = [g[lanes] for g in got], [w[lanes] for w in want]
+            for w, g in zip(want, got):
+                assert chip_smoke._err(w, g)[1] < chip_smoke.PARITY_RTOL, \
+                    (controller, name)
     # K3 on a ragged batch and with indefinite Quu, at the state tiled to 12
     tile = tuple(torch.as_tensor(np.concatenate([np.asarray(a)] * 6))
                  for a in (fx["x0"], fx["tick_xs_in"], fx["tick_us_in"]))

@@ -17,6 +17,12 @@ DT_REF = 30
 CPU = torch.device("cpu")
 F64 = torch.float64
 
+# The port's CPU tests run many tiny batched products; PyTorch's intra-op
+# threads cost more than they give there (a batched 3 x 3 product under
+# forward-mode AD: 25 ms on 8 threads, 0.5 ms on one), and the suite runs
+# in several worker processes at once.
+torch.set_num_threads(1)
+
 
 def load(robot, mission="displacement", loader=specs):
     """(trajectory, mpc params) through ``loader``: the JAX package's

@@ -1,22 +1,43 @@
-"""Write the JAX reference fixture that the PyTorch port's slice tests read.
+"""Write the JAX reference fixtures that the PyTorch port's tests read.
 
-The flagship closed-loop tick (hexacopter370_flying_arm_3, displacement
-mission, offline reference from missions/refs/) is run through the JAX
-package in float64 on the CPU at B=2, and its inputs and outputs are saved
-to tests/fixtures/torch_port_flagship.npz:
+Each MPC controller of the flagship (hexacopter370_flying_arm_3,
+displacement mission, offline reference from missions/refs/) is run
+through the JAX package in float64 on the CPU at B=2, and its inputs and
+outputs are saved to tests/fixtures/torch_port_<controller>.npz:
 
-- warm start: ``sbfddp.solve_fixed_batched(depth=4, polish="fixed")`` with
-  the default settings (two homotopy stages) from the cold bench-style
-  candidates (x0 = reference + seeded noise, xs = x0 tiled, us = hover);
-- tick: ``update_problem`` + ``sbfddp.solve_fixed(depth=2, n_alphas=10,
-  polish="while_fixed", polish_maxiter=1)`` at convergence_init=1e-3 +
-  ``AerialSimulator.step`` (2 ms RK4) from ``us_squash[0]``. Element 0
-  starts from the warm-start solution; element 1 from a rough candidate
-  (seeded noise on states and controls), so the DDP polish runs for it.
+- warm start (``warm_*``): ``sbfddp.solve_fixed_batched(depth=4,
+  polish="fixed")`` with the default settings (two homotopy stages) from
+  the cold bench-style candidates (x0 = reference + seeded noise, xs = x0
+  tiled, us = hover);
+- tick (``tick_*``): ``update_problem`` + ``sbfddp.solve_fixed(depth=2,
+  n_alphas=10, polish="while_fixed", polish_maxiter=1)`` at
+  convergence_init=1e-3 + ``AerialSimulator.step`` (2 ms RK4) from
+  ``us_squash[0]``. Element 0 starts from the warm-start solution; element
+  1 from a rough candidate (seeded noise on states and controls), so the
+  DDP polish runs for it.
 
-Compiling the tick takes about a minute on a CPU. Regenerate with
+Carrot (``torch_port_flagship.npz``) warms at 3480 ms and ticks at 3500 ms;
+Weighted and Rail (``torch_port_weighted.npz``, ``torch_port_rail.npz``)
+at 3180 and 3200 ms. The noise comes from seed 0, except Weighted's from
+seed 8. The Weighted solves are chaotic at the level of the tests'
+tolerances (cost rtol 1e-8, states rtol 1e-6 / atol 1e-8): over nine seeds of
+0-12 the port's plain path landed from 0.002 to 5.6 times a tolerance away
+from JAX (seed 0: the warm start's cost 1.01 times; seed 12: the tick's
+cost 5.6 times), seed 8 at most 0.07 times in the warm start and 0.004
+times in the tick. Besides the ticks:
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py
+- carrot: the node derivatives of the XLA path (``calc_diff_all``,
+  ``pallas_nodes=False``) on perturbed candidates at 500 and 3500 ms
+  (``cd_*``), ``total_cost`` on others (``tc_*``) and one plant step from
+  random states (``sim_*``);
+- weighted: at the tick's inputs (gaps kept), the node derivatives of the
+  XLA path (``cd_*``), the gaps and the gains of one backward pass, and
+  the forward pass for each of the 10 alphas (``fp_*``).
+
+Compiling the solvers takes a few minutes on a CPU (about 2 minutes per
+controller). Regenerate all three, or the ones named, with
+
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship weighted rail]
 """
 
 import os
@@ -27,45 +48,44 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-OUT = os.path.join(ROOT, "tests", "fixtures", "torch_port_flagship.npz")
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 ROBOT = "hexacopter370_flying_arm_3"
 MISSION = "displacement"
 DT_REF = 30
-T_WARM = 3480.0
-T_TICK = 3500.0
 B = 2
-SEED = 0
+SEEDS = {"flagship": 0, "weighted": 8, "rail": 0}
+# (warm start, tick) times in ms per controller
+TIMES = {"flagship": (3480.0, 3500.0), "weighted": (3180.0, 3200.0),
+         "rail": (3180.0, 3200.0)}
+NAMES = ("xs", "us", "us_squash", "cost", "iters", "feasible", "failed")
 
 
-def main():
+def perturbed(spec, x_base, seed):
+    """The perturbed candidates of tests/test_node_pallas.py."""
+    rng = np.random.default_rng(seed)
+    nx, T, nu = spec.model.nx, spec.T, spec.nu
+    xs = np.tile(np.asarray(x_base), (B, T + 1, 1))
+    xs += rng.normal(size=xs.shape) * 0.03
+    xs[..., 3:7] /= np.linalg.norm(xs[..., 3:7], axis=-1, keepdims=True)
+    us = rng.normal(size=(B, T, nu)) * 0.5 + 1.0
+    return xs, us
+
+
+def tick_fixture(ctrl, sim, ref, mp, t_warm, t_tick, seed):
+    """The warm start and the tick of one controller (module docstring)."""
     import jax
 
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_enable_x64", True)
-
-    from eagle_mpc_tpu.config import specs
-    from eagle_mpc_tpu.mpc import CarrotMpc
     from eagle_mpc_tpu.ocp import problem as P
-    from eagle_mpc_tpu.sim import AerialSimulator
     from eagle_mpc_tpu.solvers import sbfddp
-    from tools.make_ref import load_ref
 
-    missions = os.path.join(ROOT, "missions")
-    traj = specs.load_trajectory(f"{ROBOT}/trajectories/{MISSION}.yaml",
-                                 yaml_dir=missions)
-    mp = specs.load_mpc_params(f"{ROBOT}/mpc/mpc.yaml", yaml_dir=missions)
-    ref, _ = load_ref(ROBOT, MISSION, DT_REF, traj=traj)
-    ctrl = CarrotMpc(mpc_params=mp, trajectory=traj, state_ref=ref,
-                     dt_ref=DT_REF)
-    sim = AerialSimulator.from_platform(mp.model, mp.platform, dt_ms=2)
     spec = ctrl.spec
     T, nu, nx = spec.T, spec.nu, mp.model.nx
     hover = float(mp.model.inertia[0][0, 0]) * 9.81 / mp.platform.n_rotors
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     noise = rng.normal(size=(B, nx)) * 0.05
     noise[:, 3:7] = 0.0
-    x0 = ref[int(T_WARM // DT_REF)][None] + noise
+    x0 = ref[int(t_warm // DT_REF)][None] + noise
     xs_cold = np.tile(x0[:, None, :], (1, T + 1, 1))
     us_cold = np.zeros((B, T, nu))
     us_cold[:, :, :mp.platform.n_rotors] = hover
@@ -94,30 +114,143 @@ def main():
                     r.failed, x_next)
         return jax.vmap(one)(t, x0, xs, us)
 
-    names = ("xs", "us", "us_squash", "cost", "iters", "feasible", "failed")
-    t_warm = np.full((B,), T_WARM)
-    w = [np.asarray(a) for a in warm(t_warm, x0, xs_cold, us_cold)]
+    t_w = np.full((B,), t_warm)
+    w = [np.asarray(a) for a in warm(t_w, x0, xs_cold, us_cold)]
 
-    t_tick = np.full((B,), T_TICK)
+    t_t = np.full((B,), t_tick)
     rough_xs = xs_cold[1] + rng.normal(size=xs_cold[1].shape) * 0.03
     rough_xs[:, 3:7] /= np.linalg.norm(rough_xs[:, 3:7], axis=-1,
                                        keepdims=True)
     rough_us = rng.normal(size=(T, nu)) * 0.5 + 1.0
     xs_tick = np.stack([w[0][0], rough_xs])
     us_tick = np.stack([w[1][0], rough_us])
-    k = [np.asarray(a) for a in tick(t_tick, x0, xs_tick, us_tick)]
+    k = [np.asarray(a) for a in tick(t_t, x0, xs_tick, us_tick)]
 
-    out = {"x0": x0, "warm_t": t_warm, "warm_xs_in": xs_cold,
-           "warm_us_in": us_cold, "tick_t": t_tick, "tick_xs_in": xs_tick,
+    out = {"x0": x0, "warm_t": t_w, "warm_xs_in": xs_cold,
+           "warm_us_in": us_cold, "tick_t": t_t, "tick_xs_in": xs_tick,
            "tick_us_in": us_tick}
-    out.update({f"warm_{n}": a for n, a in zip(names, w)})
-    out.update({f"tick_{n}": a for n, a in zip(names + ("x_next",), k)})
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    np.savez_compressed(OUT, **out)
-    print(f"wrote {OUT}")
-    for n in ("iters", "feasible", "failed", "cost"):
-        print(f"warm {n}: {out['warm_' + n]}  tick {n}: {out['tick_' + n]}")
+    out.update({f"warm_{n}": a for n, a in zip(NAMES, w)})
+    out.update({f"tick_{n}": a for n, a in zip(NAMES + ("x_next",), k)})
+    return out
+
+
+def calc_diff_fixture(ctrl, t_ms, x0, xs, us, prefix="cd"):
+    """Node derivatives of the XLA path (running nodes, then the terminal
+    node's cost, Lx, Lxx) at (t_ms, x0, xs, us), B problems."""
+    import jax
+    import jax.numpy as jnp
+
+    from eagle_mpc_tpu.ocp import problem as P
+
+    params0 = P.as_device(ctrl.params0)
+
+    def cd(t1, x1, xs1, us1):
+        p = ctrl.update_problem(t1, params0._replace(x0=x1))
+        return P.calc_diff_all(ctrl.spec, p, xs1, us1, pallas_nodes=False)
+
+    d, term = jax.jit(jax.vmap(cd))(jnp.asarray(t_ms), jnp.asarray(x0),
+                                    jnp.asarray(xs), jnp.asarray(us))
+    out = {f"{prefix}_t": np.asarray(t_ms), f"{prefix}_x0": np.asarray(x0),
+           f"{prefix}_xs": np.asarray(xs), f"{prefix}_us": np.asarray(us)}
+    out.update({f"{prefix}_{n}": np.asarray(getattr(d, n)) for n in d._fields})
+    out.update({f"{prefix}_term_{n}": np.asarray(a)
+                for n, a in zip(("cost", "Lx", "Lxx"), term)})
+    return out
+
+
+def forward_pass_fixture(ctrl, fx):
+    """Gaps (kept: infeasible), one backward pass (reg 1e-9) and the
+    forward pass for each of the 10 alphas at the tick's inputs."""
+    import jax
+    import jax.numpy as jnp
+
+    from eagle_mpc_tpu.ocp import problem as P
+    from eagle_mpc_tpu.solvers import fddp
+
+    spec = ctrl.spec
+    settings = fddp.SolverSettings()
+    alphas = jnp.asarray(settings.alphas)
+    params0 = P.as_device(ctrl.params0)
+    feasible = jnp.asarray(False)
+
+    def one(t1, x1, xs1, us1):
+        p = ctrl.update_problem(t1, params0._replace(x0=x1))
+        d, term = P.calc_diff_all(spec, p, xs1, us1, pallas_nodes=False)
+        fs = fddp._gaps(spec, p, xs1, d, feasible)
+        reg = jnp.asarray(1e-9)
+        bp = fddp._backward_pass(spec, d, term, fs, reg, reg, feasible)
+        fp = jax.vmap(lambda a: fddp._forward_pass(
+            spec, p, xs1, us1, bp, fs, a, feasible, True,
+            th_diverge=settings.th_diverge))(alphas)
+        return fs, bp.k, bp.K, fp[:4]
+
+    fs, k, K, fp = jax.jit(jax.vmap(one))(
+        jnp.asarray(fx["tick_t"]), jnp.asarray(fx["x0"]),
+        jnp.asarray(fx["tick_xs_in"]), jnp.asarray(fx["tick_us_in"]))
+    out = {"fp_fs": np.asarray(fs), "fp_k": np.asarray(k),
+           "fp_K": np.asarray(K)}
+    out.update({f"fp_{n}": np.asarray(a) for n, a in
+                zip(("xs_try", "us_try", "cost_try", "diverged"), fp)})
+    return out
+
+
+def main(names):
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+
+    from eagle_mpc_tpu.config import specs
+    from eagle_mpc_tpu.mpc import CarrotMpc, RailMpc, WeightedMpc
+    from eagle_mpc_tpu.ocp import problem as P
+    from eagle_mpc_tpu.sim import AerialSimulator
+    from tools.make_ref import load_ref
+
+    missions = os.path.join(ROOT, "missions")
+    traj = specs.load_trajectory(f"{ROBOT}/trajectories/{MISSION}.yaml",
+                                 yaml_dir=missions)
+    mp = specs.load_mpc_params(f"{ROBOT}/mpc/mpc.yaml", yaml_dir=missions)
+    ref, _ = load_ref(ROBOT, MISSION, DT_REF, traj=traj)
+    sim = AerialSimulator.from_platform(mp.model, mp.platform, dt_ms=2)
+    ctrls = {
+        "flagship": CarrotMpc(mpc_params=mp, trajectory=traj, state_ref=ref,
+                              dt_ref=DT_REF),
+        "weighted": WeightedMpc(mpc_params=mp, trajectory=traj, dt_ref=DT_REF),
+        "rail": RailMpc(mpc_params=mp, state_ref=ref, dt_ref=DT_REF),
+    }
+    os.makedirs(FIXTURES, exist_ok=True)
+    for name in names or list(ctrls):
+        ctrl = ctrls[name]
+        out = tick_fixture(ctrl, sim, ref, mp, *TIMES[name], SEEDS[name])
+        if name == "flagship":
+            x_base = ctrl.params0.x0
+            xs, us = perturbed(ctrl.spec, x_base, 0)
+            out.update(calc_diff_fixture(ctrl, np.array([500.0, 3500.0]),
+                                         xs[:, 0], xs, us))
+            xs, us = perturbed(ctrl.spec, x_base, 1)
+            tc = jax.jit(jax.vmap(lambda x1, xs1, us1: P.total_cost(
+                ctrl.spec, ctrl.update_problem(
+                    3500.0, P.as_device(ctrl.params0)._replace(x0=x1)),
+                xs1, us1)))
+            out.update(tc_t=np.full((B,), 3500.0), tc_xs=xs, tc_us=us,
+                       tc_cost=np.asarray(tc(xs[:, 0], xs, us)))
+            rng = np.random.default_rng(11)
+            x = rng.normal(size=(4, mp.model.nx))
+            x[:, 3:7] /= np.linalg.norm(x[:, 3:7], axis=-1, keepdims=True)
+            u = np.random.default_rng(12).uniform(0.0, 5.0,
+                                                  size=(4, mp.platform.nu))
+            out.update(sim_x=x, sim_u=u,
+                       sim_x_next=np.asarray(jax.jit(jax.vmap(sim.step))(x, u)))
+        if name == "weighted":
+            out.update(calc_diff_fixture(ctrl, out["tick_t"], out["x0"],
+                                         out["tick_xs_in"], out["tick_us_in"]))
+            out.update(forward_pass_fixture(ctrl, out))
+        path = os.path.join(FIXTURES, f"torch_port_{name}.npz")
+        np.savez_compressed(path, **out)
+        print(f"wrote {path}")
+        for n in ("iters", "feasible", "failed", "cost"):
+            print(f"  warm {n}: {out['warm_' + n]}  tick {n}: {out['tick_' + n]}")
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
