@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MPC ticks (Carrot, Weighted, Rail) on one
-NVIDIA GPU.
+"""Drive the PyTorch port's MPC ticks (Carrot, Weighted, Rail) and its
+offline trajectory generation on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -41,7 +41,27 @@ its seconds):
    (equal per-scenario failures);
 5. reference: for each controller the float64 tick and warm start at B=2
    through the kernels against the JAX package's fixture
-   (tests/fixtures/torch_port_{flagship,weighted,rail}.npz).
+   (tests/fixtures/torch_port_{flagship,weighted,rail}.npz);
+6. offline (trajectory generation: ``problem.from_trajectory`` and
+   ``sbfddp.solve``, the while-loop FDDP stages and the DDP polish; the
+   launch counts set to 0 before step 1 and read after step 4):
+   1. the flagship mission at dt 30 ms (T=132, 10 cost slots) in float64
+      at B=1 against the JAX package's offline solve
+      (missions/refs/..._dt30.npz): feasible, the same iterations, cost to
+      rtol 1e-8, xs and us_squash to OFFLINE_ATOL;
+   2. the same in float32 at B=1 (feasible; the steady solve time, its
+      iterations and ms per iteration);
+   3. float32 at B=64 with x0 perturbed (sd 0.05, seed 0, quaternion
+      untouched): every element feasible and finite;
+   4. the box solvers on iris hover at dt 40 ms without the squash, float64:
+      Box-FDDP (the while loop) and the fixed iteration with ``box=True``
+      agree on iterations and controls (1e-8), the controls lie within
+      their bounds, and both match tests/fixtures/torch_port_offline.npz;
+      K2's box branch must have launched;
+   5. parity in float64 of K1, K2 and K3 at the converged flagship state
+      and of K1 and K2 (with the clip) at the converged box state (nj = 0,
+      no squash), and the kernels' and plain versions' times in float32 at
+      the flagship state (B=1, T=132).
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -52,6 +72,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -72,6 +93,10 @@ FIXTURES = {"carrot": "torch_port_flagship.npz",
 BATCH = 512
 WARM_DEPTH = 30
 PARITY_RTOL = 1e-9     # float64 gate, relative to each output's max |entry|
+OFFLINE_MAXITER = 400  # per homotopy stage, as the offline reference's solve
+OFFLINE_BATCH = 64
+OFFLINE_ATOL = 1e-6    # f64 flagship offline solve: xs and us_squash vs JAX
+OFFLINE_PLAIN_REPS = 3  # the plain versions at T=132 take up to seconds a call
 TIMING_REPS = 20
 # published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): HBM3
 # bytes/s and float32 FLOP/s outside the tensor cores (the kernels use none)
@@ -267,7 +292,7 @@ def _time_ms(fn, reps=TIMING_REPS):
     return float(np.median(times))
 
 
-def kernel_calls(ctrl, params, xs, us, feasible, reg):
+def kernel_calls(ctrl, params, xs, us, feasible, reg, box=False):
     """(kernel fn, plain fn, input tensors, dense operations) per kernel on
     one solver state; K3 and K2 get their inputs from the plain versions of
     the stages before them. The operations count the dense products each
@@ -276,7 +301,8 @@ def kernel_calls(ctrl, params, xs, us, feasible, reg):
     STATE slots' 6 x 6 base blocks and of the frame slots' full rows (Lx
     and Lxx), and the Euler step's base block times dD; K2 the feedback
     law, M's Cholesky factor and its two solves per step; K3 the Q terms
-    Fx'VxxFx, Fu'VxxFu and Fu'VxxFx per node."""
+    Fx'VxxFx, Fu'VxxFu and Fu'VxxFx per node. ``box`` runs K2 with the
+    controls clipped to their bounds."""
     import torch
 
     from eagle_mpc_tpu_torch.ocp import costs as C
@@ -303,7 +329,7 @@ def kernel_calls(ctrl, params, xs, us, feasible, reg):
     alphas = torch.tensor(fddp.SolverSettings().alphas, device=xs.device,
                           dtype=xs.dtype)
     keep = (~feasible[:, None]) & (alphas != 1.0)[None, :]
-    rargs = (spec, params, xs, us, k, K, fs, alphas, keep)
+    rargs = (spec, params, xs, us, k, K, fs, alphas, keep, box)
     rows = _cuda.pack_params(spec, params, xs.dtype, xs.device)
     T, A = spec.T, alphas.shape[0]
     nv, ndx, nu = spec.model.nv, spec.state.ndx, spec.nu
@@ -489,6 +515,205 @@ def phase_reference(device, controller="carrot"):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the offline path (trajectory generation, box solvers)
+# ---------------------------------------------------------------------------
+
+def offline_problem(device, dtype, robot=ROBOT, mission=MISSION, dt_ms=DT_REF,
+                    use_squash=True):
+    """(spec, params batched at B = 1) of a mission, as the entry point
+    ``eagle_mpc_tpu_torch.trajectory`` builds them."""
+    from eagle_mpc_tpu_torch.config import load_trajectory
+    from eagle_mpc_tpu_torch.ocp import problem as P
+
+    traj = load_trajectory(f"{robot}/trajectories/{mission}.yaml",
+                           yaml_dir=os.path.join(ROOT, "missions"))
+    spec, params = P.from_trajectory(
+        traj, dt_ms=dt_ms, use_squash=use_squash,
+        integrator="IntegratedActionModelEuler", dtype=dtype, device=device)
+    return spec, P.expand_params(params, 1)
+
+
+def _solve_timed(fn):
+    """(result, seconds) of fn() with the device synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.time() - t0
+
+
+def phase_offline(device):
+    """The offline path (module docstring, phase 6). Returns (launches per
+    kernel, {kernel: numbers at the converged flagship state}, {kernel:
+    parity at the box spec})."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.ops import node_cuda, riccati_cuda, rollout_cuda
+    from eagle_mpc_tpu_torch.solvers import fddp, sbfddp
+    from eagle_mpc_tpu_torch.trajectory import perturbed_x0
+
+    mods = {"node_linearization": node_cuda, "riccati_backward": riccati_cuda,
+            "alpha_rollout": rollout_cuda}
+    f64, f32 = torch.float64, torch.float32
+    for m in mods.values():
+        m.LAUNCHES = 0
+    rollout_cuda.BOX_LAUNCHES = 0
+
+    # 1. the flagship in f64 against the JAX package's offline solve
+    spec, params = offline_problem(device, f64)
+    check(spec.T == 132 and len(spec.slots) == 10,
+          f"flagship offline spec: T {spec.T}, {len(spec.slots)} slots")
+    res, sec = _solve_timed(lambda: sbfddp.solve(spec, params,
+                                                 maxiter=OFFLINE_MAXITER))
+    ref = np.load(os.path.join(ROOT, "missions", "refs",
+                               f"{ROBOT}__{MISSION}__dt{DT_REF}.npz"))
+    dx = float(np.abs(res.xs[0].cpu().numpy() - ref["xs"]).max())
+    du = float(np.abs(res.us_squash[0].cpu().numpy() - ref["us_squash"]).max())
+    cost = float(res.cost[0])
+    say(f"offline flagship f64 B=1 T={spec.T}: {sec:.3f} s, iters "
+        f"{int(res.iters[0])} (JAX {int(ref['iters'])}), cost {cost!r} (JAX "
+        f"{float(ref['cost'])!r}), feasible {bool(res.feasible[0])}, max "
+        f"|xs - JAX| {dx:.3e}, max |us_squash - JAX| {du:.3e}")
+    check(bool(res.feasible[0]) and not bool(res.failed[0]),
+          "offline flagship f64: not feasible")
+    check(int(res.iters[0]) == int(ref["iters"]),
+          "offline flagship f64: iterations differ from the JAX solve")
+    check(abs(cost - float(ref["cost"])) <= 1e-8 * abs(float(ref["cost"])),
+          "offline flagship f64: cost differs from the JAX solve (rtol 1e-8)")
+    check(dx <= OFFLINE_ATOL and du <= OFFLINE_ATOL,
+          f"offline flagship f64: xs / us_squash differ from the JAX solve "
+          f"by more than {OFFLINE_ATOL:g}")
+    converged = (res.xs, res.us)
+
+    # 2. the flagship in f32 at B = 1, the examples' default
+    spec32, params32 = offline_problem(device, f32)
+    sbfddp.solve(spec32, params32, maxiter=OFFLINE_MAXITER)
+    res1, sec = _solve_timed(lambda: sbfddp.solve(spec32, params32,
+                                                  maxiter=OFFLINE_MAXITER))
+    it = int(res1.iters[0])
+    say(f"offline flagship f32 B=1: steady solve {sec * 1e3:.1f} ms, iters "
+        f"{it}, {sec * 1e3 / max(it, 1):.2f} ms per iteration, cost "
+        f"{float(res1.cost[0])!r}, feasible {bool(res1.feasible[0])}")
+    check(bool(res1.feasible[0]) and bool(torch.isfinite(res1.xs).all()),
+          "offline flagship f32 B=1: not feasible")
+
+    # 3. the flagship in f32 at B = 64, x0 perturbed
+    pb = P.expand_params(P.map_params(lambda a: a[0], params32), OFFLINE_BATCH)
+    pb = pb._replace(x0=perturbed_x0(params32.x0[0], OFFLINE_BATCH, 0.05, 0))
+    resb, sec = _solve_timed(lambda: sbfddp.solve(spec32, pb,
+                                                  maxiter=OFFLINE_MAXITER))
+    end = resb.xs[:, -1, :3].double().cpu().numpy()
+    end1 = res1.xs[0, -1, :3].double().cpu().numpy()
+    say(f"offline flagship f32 B={OFFLINE_BATCH}: {sec * 1e3:.1f} ms, iters "
+        f"{resb.iters.min().item()}-{resb.iters.max().item()}, feasible "
+        f"{int(resb.feasible.sum())} of {OFFLINE_BATCH}; final base position "
+        f"of the unperturbed solve {end1.round(6).tolist()}, each element's "
+        f"distance from it (m): {np.linalg.norm(end - end1, axis=1).round(6).tolist()}")
+    check(bool(resb.feasible.all()) and bool(torch.isfinite(resb.xs).all())
+          and bool(torch.isfinite(resb.cost).all()),
+          f"offline flagship f32 B={OFFLINE_BATCH}: not every element "
+          "feasible and finite")
+
+    # 4. the box solvers: iris hover, raw controls, f64
+    bspec, bparams = offline_problem(device, f64, "iris", "hover", 40, False)
+    settings = fddp.SolverSettings()
+    xs0, us0 = fddp.default_init(bspec, bparams)
+    rw = fddp.solve_box_fddp(bspec, settings, bparams, xs0, us0, 60, 1e-9)
+    rf = fddp.solve_fixed(bspec, settings, bparams, xs0, us0,
+                          int(rw.iters[0]) + 6, 1e-9, box=True)
+    fx = np.load(os.path.join(ROOT, "tests", "fixtures",
+                              "torch_port_offline.npz"))
+    lb, ub = bparams.glob.s_lb[0], bparams.glob.s_ub[0]
+    d_fixed = float((rf.us - rw.us).abs().max())
+    d_jax = float(np.abs(rw.us[0].cpu().numpy() - fx["boxfddp_us"]).max())
+    say(f"offline box f64 iris T={bspec.T}: Box-FDDP iters {int(rw.iters[0])} "
+        f"(JAX {int(fx['boxfddp_iters'])}), fixed box iters "
+        f"{int(rf.iters[0])}, max |us fixed - while| {d_fixed:.3e}, max |us "
+        f"- JAX| {d_jax:.3e}, cost {float(rw.cost[0])!r} (JAX "
+        f"{float(fx['boxfddp_cost'])!r})")
+    check(int(rf.iters[0]) == int(rw.iters[0]) == int(fx["boxfddp_iters"]),
+          "offline box: iterations differ")
+    check(d_fixed <= 1e-8 and d_jax <= 1e-8, "offline box: controls differ")
+    check(bool(((rw.us >= lb - 1e-9) & (rw.us <= ub + 1e-9)).all()),
+          "offline box: controls outside their bounds")
+    check(abs(float(rw.cost[0]) - float(fx["boxfddp_cost"]))
+          <= 1e-8 * abs(float(fx["boxfddp_cost"])), "offline box: cost differs")
+    box_state = (rw.xs, rw.us)
+    torch.cuda.synchronize()
+    launches = {n: m.LAUNCHES for n, m in mods.items()}
+    box_launches = rollout_cuda.BOX_LAUNCHES
+    say(f"offline launches during the path: {json.dumps(launches)}, of K2 "
+        f"with the box clip: {box_launches}")
+    for n in mods:
+        check(launches[n] > 0, f"offline: {n}: no kernel launch")
+    check(box_launches > 0, "offline: K2's box branch never launched")
+
+    # 5. parity at the converged flagship state and at the box spec
+    stats = _offline_parity(spec, params, converged, "flagship", box=False)
+    box_stats = _offline_parity(bspec, bparams, box_state, "iris box",
+                                box=True, kernels=("node_linearization",
+                                                   "alpha_rollout"))
+    _offline_times(spec32, params32, converged, stats)
+    return launches, stats, box_stats
+
+
+def _offline_parity(spec, params, state, label, box, kernels=None):
+    """Each kernel against its plain version in f64 at a solved state tiled
+    to B = 2 (element 0 feasible, element 1 not, so both gap branches
+    run)."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+
+    xs, us = (torch.cat([a, a]) for a in state)
+    pb = P.map_params(lambda a: torch.cat([a, a]), params)
+    feasible = torch.tensor([True, False], device=xs.device)
+    calls = kernel_calls(SimpleNamespace(spec=spec), pb, xs, us, feasible,
+                         reg=1e-2, box=box)
+    out = {}
+    for name in kernels or calls:
+        kern, plain = calls[name][:2]
+        got, want = kern(), plain()
+        if name == "alpha_rollout":
+            lanes = _healthy_lanes(want)
+            check(torch.equal(lanes, _healthy_lanes(got)),
+                  f"{label} alpha_rollout: kernel and plain version disagree "
+                  "on which lanes diverge")
+            got, want = [g[lanes] for g in got], [w[lanes] for w in want]
+        errs = [_err(w, g) for w, g in zip(want, got)]
+        abs_err, rel_err = max(e[0] for e in errs), max(e[1] for e in errs)
+        say(f"{label} parity f64 {name} (T={spec.T}): max abs {abs_err:.3e}, "
+            f"max rel {rel_err:.3e} (gate {PARITY_RTOL:g})")
+        check(rel_err <= PARITY_RTOL, f"{label} {name}: kernel differs from "
+              f"its plain version ({rel_err:.3e} > {PARITY_RTOL:g})")
+        out[name] = {"max_abs_err": abs_err}
+    return out
+
+
+def _offline_times(spec, params, state, stats):
+    """Kernel and plain times in f32 at B = 1 at the converged flagship
+    state (feasible), with each kernel's bound."""
+    import torch
+
+    xs, us = (a.to(torch.float32) for a in state)
+    feasible = torch.tensor([True], device=xs.device)
+    calls = kernel_calls(SimpleNamespace(spec=spec), params, xs, us, feasible,
+                         reg=1e-2)
+    for name, (kern, plain, ins, flops) in calls.items():
+        r = stats[name]
+        r["bound_ms"], r["bound_by"] = bound_ms(ins, kern(), flops)
+        r["ms"] = _time_ms(kern)
+        r["plain_ms"] = _time_ms(plain, reps=OFFLINE_PLAIN_REPS)
+        say(f"offline time f32 B=1 T={spec.T} {name}: kernel {r['ms']:.3f} ms, "
+            f"plain {r['plain_ms']:.3f} ms (medians of {TIMING_REPS} and "
+            f"{OFFLINE_PLAIN_REPS}), bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}")
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the bench workload
 # ---------------------------------------------------------------------------
 
@@ -624,6 +849,9 @@ def main():
         t_phase = time.time()
         phase_reference(device, PATHS[name][0])
         say(f"phase reference {name}: {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    off_launches, off_stats, box_stats = phase_offline(device)
+    say(f"phase offline: {time.time() - t_phase:.1f} s")
     foreign = sorted(m for m in sys.modules
                      if m in ("jax", "eagle_mpc_tpu", "tools")
                      or m.startswith(("jax.", "eagle_mpc_tpu.", "tools.")))
@@ -634,13 +862,18 @@ def main():
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": paths["carrot"][0][name],
          "launches_per_tick": paths["carrot"][1][name],
-         "launches_per_path": {p: paths[p][0][name] for p in PATHS},
+         "launches_per_path": dict({p: paths[p][0][name] for p in PATHS},
+                                   offline=off_launches[name]),
          "max_abs_err": main_stats[name]["max_abs_err"],
          "ms": main_stats[name]["ms"], "plain_ms": main_stats[name]["plain_ms"],
          "bound_ms": main_stats[name]["bound_ms"],
          "bound_by": main_stats[name]["bound_by"], "library_ms": None,
          "weighted": {k: stats["weighted"][name][k] for k in
-                      ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
+                      ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "offline": {k: off_stats[name][k] for k in
+                     ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         **({"offline_box_max_abs_err": box_stats[name]["max_abs_err"]}
+            if name in box_stats else {})}
         for name, src, rep in KERNELS]}
     say(json.dumps(record))
     say(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""eagle_mpc_tpu_torch: the Carrot, Rail and Weighted MPC ticks of
-``eagle_mpc_tpu`` in PyTorch.
+"""eagle_mpc_tpu_torch: the Carrot, Rail and Weighted MPC ticks and the
+offline trajectory generation of ``eagle_mpc_tpu`` in PyTorch.
 
 The layout mirrors the JAX package (``dynamics``, ``ocp``, ``ops``,
 ``solvers``, ``mpc``, ``sim``). Batches are explicit and leading,

@@ -37,7 +37,7 @@
 #define EM_MAX_NDX (2 * EM_MAX_NV)
 #define EM_MAX_NU 12
 #define EM_MAX_NZ (EM_MAX_NDX + EM_MAX_NU)
-#define EM_MAX_SLOTS 8
+#define EM_MAX_SLOTS 12
 #define EM_MAX_NR EM_MAX_NDX
 
 #define EM_EPS2 1e-8
@@ -779,6 +779,7 @@ __device__ __noinline__ S slot_cost(const ModelDesc& d, int k, const S* x, const
 // is l in [0, G); every thread of the warp passes the same barriers.
 
 #define EM_BASE_NDX 6   // tangent dimension of the free-flyer base
+#define EM_COST_ROWS 8  // threads of a group that take slot costs (after the first)
 
 template <class S>
 struct CoopNode {
@@ -796,7 +797,7 @@ struct CoopNode {
   S IX[36];
   S M[EM_MAX_NV * EM_MAX_NV];   // out: the Cholesky factor of M (lower, stride EM_MAX_NV)
   S ck[EM_MAX_SLOTS];      // weighted slot costs
-  S res[EM_MAX_SLOTS][EM_MAX_NR];  // slot residuals
+  S res[EM_COST_ROWS][EM_MAX_NR];  // slot residuals, a row per cost thread
   S tmp[EM_MAX_NDX];       // scratch of the first thread
   S inc[EM_MAX_NDX];       // the Euler increment
 };
@@ -839,9 +840,9 @@ __device__ __forceinline__ void coop_dyn_next(const ModelDesc& d, int l, CoopNod
   __syncwarp();
   if (l == 0)
     coop_tree_down<S>(d, W);
-  else if (np)
-    for (int k = l - 1; k < d.n_slots; k += G - 1)
-      W.ck[k] = slot_cost<S>(d, k, W.xt, W.u, np, gp, W.res[k]);
+  else if (np && l <= EM_COST_ROWS)
+    for (int k = l - 1; k < d.n_slots; k += min(G - 1, EM_COST_ROWS))
+      W.ck[k] = slot_cost<S>(d, k, W.xt, W.u, np, gp, W.res[l - 1]);
   __syncwarp();
   for (int b = l; b <= nj; b += G) body_force<S, S>(d, b, W.acc[b], W.k.vel[b], W.force[b]);
   for (int e = l; e < 36 * (nj + 1); e += G) W.Ic[e / 36][e % 36] = S(d.inertia[e / 36][e % 36]);

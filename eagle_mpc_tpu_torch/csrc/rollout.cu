@@ -6,7 +6,8 @@
 // Per lane (b, a), sequential over the T running nodes with the state
 // carried from x0[b]:
 //   x_try = keep ? x (+) f_t (alpha - 1) : x       (gap contraction)
-//   u_try = u_t - alpha k_t - K_t (x_t^-1 x_try)   (feedback law)
+//   u_try = u_t - alpha k_t - K_t (x_t^-1 x_try)   (feedback law; with box,
+//           clipped to [s_lb, s_ub], the Box-DDP rollout)
 //   x     = dyn_next(x_try, u_try)                 (squash, dynamics, Euler)
 //   c_t   = running cost at (x_try, u_try)
 // Outputs xs_try (B, A, T, nx), us_try (B, A, T, nu), cs (B, A, T) and the
@@ -115,7 +116,7 @@ __device__ __noinline__ void ro_gap_and_error(const ModelDesc& d, CoopNode<S>& G
 
 template <class S>
 __global__ void __launch_bounds__(RO_MAX_THREADS)
-rollout_kernel(const ModelDesc* __restrict__ desc, int B, int A, int T,
+rollout_kernel(const ModelDesc* __restrict__ desc, int B, int A, int T, int box,
                const S* __restrict__ xs, const S* __restrict__ us,
                const S* __restrict__ kff, const S* __restrict__ Kfb,
                const S* __restrict__ fs, const S* __restrict__ x0,
@@ -163,12 +164,17 @@ rollout_kernel(const ModelDesc* __restrict__ desc, int B, int A, int T,
 
     if (l == 0) ro_gap_and_error<S>(d, G, xs_t, f_t, alpha, kp);
     __syncwarp();
-    // feedback law and squash, a control row per thread
+    // feedback law (clipped to the bounds when box; NaN stays NaN, as in
+    // the plain version's min/max) and squash, a control row per thread
     for (int i = l; i < nu; i += RO_G) {
       S acc = S(0);
       const S* Krow = K_t + i * ndx;
       for (int j = 0; j < ndx; ++j) acc = acc + Krow[j] * G.dx[j];
-      const S ui = us_t[i] - alpha * k_t[i] - acc;
+      S ui = us_t[i] - alpha * k_t[i] - acc;
+      if (box) {
+        const S lb = gp[1 + i], ub = gp[1 + nu + i];
+        ui = ui < lb ? lb : (ui > ub ? ub : ui);
+      }
       G.u[i] = ui;
       G.usq[i] = control_u<S, S>(d, i, ui, gp);
     }
@@ -188,7 +194,7 @@ rollout_kernel(const ModelDesc* __restrict__ desc, int B, int A, int T,
 }
 
 template <class S>
-static int launch_rollout(const void* desc, const ModelDesc* hd, int B, int A, int T,
+static int launch_rollout(const void* desc, const ModelDesc* hd, int B, int A, int T, int box,
                           const S* xs,
                           const S* us, const S* k, const S* K, const S* fs,
                           const S* x0, const S* alphas, const unsigned char* keep,
@@ -207,32 +213,32 @@ static int launch_rollout(const void* desc, const ModelDesc* hd, int B, int A, i
   }
   if (B > 0 && T > 0)
     rollout_kernel<S><<<B, threads, smem, (cudaStream_t)stream>>>(
-        (const ModelDesc*)desc, B, A, T, xs, us, k, K, fs, x0, alphas, keep,
+        (const ModelDesc*)desc, B, A, T, box, xs, us, k, K, fs, x0, alphas, keep,
         node_par, glob_par, xs_try, us_try, cs, xn_last);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-int eagle_rollout_f32(const void* desc, const void* host_desc, int B, int A, int T,
+int eagle_rollout_f32(const void* desc, const void* host_desc, int B, int A, int T, int box,
                       const float* xs,
                       const float* us, const float* k, const float* K,
                       const float* fs, const float* x0, const float* alphas,
                       const unsigned char* keep, const float* node_par,
                       const float* glob_par, float* xs_try, float* us_try,
                       float* cs, float* xn_last, void* stream) {
-  return launch_rollout<float>(desc, (const ModelDesc*)host_desc, B, A, T, xs, us, k, K, fs, x0, alphas, keep, node_par,
+  return launch_rollout<float>(desc, (const ModelDesc*)host_desc, B, A, T, box, xs, us, k, K, fs, x0, alphas, keep, node_par,
                                glob_par, xs_try, us_try, cs, xn_last, stream);
 }
 
-int eagle_rollout_f64(const void* desc, const void* host_desc, int B, int A, int T,
+int eagle_rollout_f64(const void* desc, const void* host_desc, int B, int A, int T, int box,
                       const double* xs,
                       const double* us, const double* k, const double* K,
                       const double* fs, const double* x0, const double* alphas,
                       const unsigned char* keep, const double* node_par,
                       const double* glob_par, double* xs_try, double* us_try,
                       double* cs, double* xn_last, void* stream) {
-  return launch_rollout<double>(desc, (const ModelDesc*)host_desc, B, A, T, xs, us, k, K, fs, x0, alphas, keep, node_par,
+  return launch_rollout<double>(desc, (const ModelDesc*)host_desc, B, A, T, box, xs, us, k, K, fs, x0, alphas, keep, node_par,
                                 glob_par, xs_try, us_try, cs, xn_last, stream);
 }
 

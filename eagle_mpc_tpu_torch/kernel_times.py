@@ -6,11 +6,12 @@ card, in turns, on the same inputs.
 Each ROOT is the root of a checkout (an unpacked ``git archive`` of
 another commit, or ``.``); each runs in a process of its own, in the order
 given (e.g. ``parent . . parent``), and uses that checkout's own
-``chip_smoke.py`` helpers and kernels. The inputs are the JAX fixture's
-float32 tick state (tests/fixtures/torch_port_flagship.npz) tiled to
-B=512, every other scenario infeasible; times are CUDA-event medians of 20
-launches. Prints one ``TIMES <root> {...}`` line per run and the card's
-name and power limit.
+``chip_smoke.py`` helpers and kernels. The inputs are the JAX fixtures'
+float32 tick states of the Carrot and the Weighted controller
+(tests/fixtures/torch_port_{flagship,weighted}.npz) tiled to B=512, every
+other scenario infeasible; times are CUDA-event medians of 20 launches.
+Prints one ``TIMES <root> {"carrot": {...}, "weighted": {...}}`` line per
+run and the card's name and power limit.
 """
 
 import subprocess
@@ -25,16 +26,19 @@ import numpy as np, torch
 import chip_smoke as cs
 from eagle_mpc_tpu_torch.ops import _cuda
 _cuda.build()
-fx = np.load("tests/fixtures/torch_port_flagship.npz")
 B = 512
 tile = lambda a: torch.as_tensor(np.concatenate([a] * (B // a.shape[0])))
-state = (float(fx["tick_t"][0]), tile(fx["x0"]), tile(fx["tick_xs_in"]),
-         tile(fx["tick_us_in"]))
-ctrl = cs.flagship(torch.device("cuda"), torch.float32)[0]
-inputs = cs.parity_inputs(ctrl, state, torch.device("cuda"), torch.float32)
-calls = cs.kernel_calls(ctrl, *inputs, reg=1e-2)
-print("TIMES", sys.argv[1], json.dumps(
-    {name: cs._time_ms(c[0]) for name, c in calls.items()}), flush=True)
+times = {}
+for controller in ("carrot", "weighted"):
+    fx = np.load(os.path.join("tests", "fixtures", cs.FIXTURES[controller]))
+    state = (float(fx["tick_t"][0]), tile(fx["x0"]), tile(fx["tick_xs_in"]),
+             tile(fx["tick_us_in"]))
+    ctrl = cs.flagship(torch.device("cuda"), torch.float32, controller)[0]
+    inputs = cs.parity_inputs(ctrl, state, torch.device("cuda"),
+                              torch.float32)
+    calls = cs.kernel_calls(ctrl, *inputs, reg=1e-2)
+    times[controller] = {name: cs._time_ms(c[0]) for name, c in calls.items()}
+print("TIMES", sys.argv[1], json.dumps(times), flush=True)
 """
 
 

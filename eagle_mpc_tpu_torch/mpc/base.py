@@ -19,7 +19,7 @@ from ..config import specs as cspecs
 from ..ocp import actuation as act
 from ..ocp import costs as C
 from ..ocp import problem as P
-from ..solvers import sbfddp
+from ..solvers import fddp, sbfddp
 
 _INTEGRATOR_MAP = {
     cspecs.INTEGRATOR_EULER: P.EULER,
@@ -75,10 +75,19 @@ class MpcAbstract:
               settings: Optional[sbfddp.SbFddpSettings] = None,
               n_alphas: Optional[int] = None, polish: str = "while_fixed",
               polish_maxiter: Optional[int] = None):
-        """One warm-started batched MPC solve on the fixed-depth path (the
-        while-loop solver is not ported yet)."""
+        """One warm-started batched MPC solve: SbFDDP on the fixed-depth
+        path, or the mission's box solver (Box-FDDP/Box-DDP, the while
+        loop on raw controls: the spec has no squash)."""
         if not self.use_squash:
-            raise NotImplementedError("the box solvers are not ported yet")
+            box = (fddp.solve_box_fddp
+                   if self.mpc_params.solver == cspecs.SOLVER_BOX_FDDP
+                   else fddp.solve_box_ddp)
+            res = box(self.spec, fddp.SolverSettings(), params, xs, us,
+                      int(self.iters if maxiter is None else maxiter), 1e-9)
+            return sbfddp.SbFddpResult(
+                xs=res.xs, us=res.us, us_squash=res.us, cost=res.cost,
+                iters=res.iters, feasible=res.feasible, failed=res.failed,
+                smooth=torch.zeros_like(res.cost))
         return sbfddp.solve_fixed(
             self.spec, params, xs, us,
             depth=int(self.iters if maxiter is None else maxiter),

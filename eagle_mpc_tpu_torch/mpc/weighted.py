@@ -21,40 +21,8 @@ import torch
 
 from ..config import specs as cspecs
 from ..ocp import costs as C
+from ..ocp import problem as P
 from . import base
-
-_ACT_MAP = {
-    cspecs.ACT_QUAD: C.QUAD,
-    cspecs.ACT_WEIGHTED_QUAD: C.WQUAD,
-    cspecs.ACT_QUAD_BARRIER: C.QBARRIER,
-    cspecs.ACT_WEIGHTED_QUAD_BARRIER: C.WQBARRIER,
-}
-
-_KIND_MAP = {
-    cspecs.COST_STATE: C.STATE,
-    cspecs.COST_CONTROL: C.CONTROL,
-    cspecs.COST_FRAME_PLACEMENT: C.FRAME_PLACEMENT,
-    cspecs.COST_FRAME_TRANSLATION: C.FRAME_TRANSLATION,
-    cspecs.COST_FRAME_ROTATION: C.FRAME_ROTATION,
-    cspecs.COST_FRAME_VELOCITY: C.FRAME_VELOCITY,
-    cspecs.COST_FRICTION_CONE: C.FRICTION_CONE,
-}
-
-
-def _encode_ref(cost: cspecs.CostSpec) -> np.ndarray:
-    """A cost's reference as its slot stores it."""
-    kind = _KIND_MAP[cost.type]
-    if kind in (C.STATE, C.CONTROL):
-        return np.asarray(cost.reference, dtype=np.float64)
-    if kind == C.FRAME_PLACEMENT:
-        return np.concatenate([cost.position, cost.orientation])
-    if kind == C.FRAME_TRANSLATION:
-        return np.asarray(cost.position, dtype=np.float64)
-    if kind == C.FRAME_ROTATION:
-        return np.asarray(cost.orientation, dtype=np.float64)
-    if kind == C.FRAME_VELOCITY:
-        return np.concatenate([cost.linear, cost.angular])
-    return np.zeros(0)
 
 
 def merge_transition_stages(stages: Tuple[cspecs.StageSpec, ...]):
@@ -85,15 +53,15 @@ def mission_cost_slots(stages, model, nu):
     slot_exempt: List[bool] = []
     for si, st in enumerate(stages):
         for cost in st.costs:
-            kind = _KIND_MAP[cost.type]
+            kind = P._KIND_MAP[cost.type]
             ref_dims = {C.STATE: nx, C.CONTROL: nu, C.FRICTION_CONE: 0}
             slots.append(C.CostSlot(
                 name=f"{st.name}/{cost.name}", kind=kind,
-                activation=_ACT_MAP[cost.activation], nr=cost.nr,
+                activation=P._ACT_MAP[cost.activation], nr=cost.nr,
                 ref_dim=ref_dims.get(kind, C.REF_DIMS.get(kind, cost.nr)),
                 frame_id=cost.frame_id))
             weights.append(cost.weight)
-            refs.append(_encode_ref(cost))
+            refs.append(P._encode_ref(cost, nx, nu))
             nr = cost.nr
             act_w.append(np.asarray(cost.act_weights if cost.act_weights
                                     is not None else np.ones(nr), np.float64))

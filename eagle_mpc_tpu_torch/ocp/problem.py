@@ -8,6 +8,9 @@ slots:
 - ``ProblemParams``: tensors a controller changes at run time (per-node
   weights, activity, references; global activation parameters; x0).
 
+``from_trajectory`` builds both from a mission (the stages' costs as the
+union of slots, per-node weights and masks), unbatched.
+
 A batched ``ProblemParams`` carries a leading scenario axis B on every
 leaf: ``x0`` (B, nx), node leaves (B, T+1, ...), global leaves (B, ...)
 and ``squash_smooth`` (B,). Node functions accept any leading shape on
@@ -19,11 +22,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
+from ..config import specs as cspecs
 from ..dynamics import rbd
 from ..dynamics.model import RobotModel
 from ..dynamics.state import State
@@ -32,6 +37,30 @@ from . import costs as C
 
 EULER = "euler"
 RK4 = "rk4"
+
+_INTEGRATOR_MAP = {
+    cspecs.INTEGRATOR_EULER: EULER,
+    cspecs.INTEGRATOR_RK4: RK4,
+    EULER: EULER,
+    RK4: RK4,
+}
+
+_ACT_MAP = {
+    cspecs.ACT_QUAD: C.QUAD,
+    cspecs.ACT_WEIGHTED_QUAD: C.WQUAD,
+    cspecs.ACT_QUAD_BARRIER: C.QBARRIER,
+    cspecs.ACT_WEIGHTED_QUAD_BARRIER: C.WQBARRIER,
+}
+
+_KIND_MAP = {
+    cspecs.COST_STATE: C.STATE,
+    cspecs.COST_CONTROL: C.CONTROL,
+    cspecs.COST_FRAME_PLACEMENT: C.FRAME_PLACEMENT,
+    cspecs.COST_FRAME_TRANSLATION: C.FRAME_TRANSLATION,
+    cspecs.COST_FRAME_ROTATION: C.FRAME_ROTATION,
+    cspecs.COST_FRAME_VELOCITY: C.FRAME_VELOCITY,
+    cspecs.COST_FRICTION_CONE: C.FRICTION_CONE,
+}
 
 BARRIER_SLOT = "barrier"
 
@@ -329,3 +358,179 @@ def total_cost(spec: ProblemSpec, params: ProblemParams, xs, us):
 def squashed_controls(spec: ProblemSpec, params: ProblemParams, us):
     """us (B, T, nu) -> squashed controls (what the plant consumes)."""
     return squash(spec, glob_over_nodes(params.glob), us)
+
+
+# ---------------------------------------------------------------------------
+# Problems from mission files
+# ---------------------------------------------------------------------------
+
+def _slot_key(cost: cspecs.CostSpec):
+    """Two stage costs share a slot iff their static signature matches; all
+    per-node data (weight, activity, reference) lives in params."""
+    act_w = cost.act_weights.tobytes() if cost.act_weights is not None else b""
+    lb = cost.lower_bound.tobytes() if cost.lower_bound is not None else b""
+    ub = cost.upper_bound.tobytes() if cost.upper_bound is not None else b""
+    cone = (cost.n_surf.tobytes(), cost.mu) if cost.n_surf is not None else None
+    return (cost.type, cost.activation, cost.nr, cost.frame_id, act_w, lb, ub, cone)
+
+
+def _encode_ref(cost: cspecs.CostSpec, nx: int, nu: int) -> np.ndarray:
+    """A cost's reference as its slot stores it."""
+    kind = _KIND_MAP[cost.type]
+    if kind in (C.STATE, C.CONTROL):
+        return np.asarray(cost.reference, dtype=np.float64)
+    if kind == C.FRAME_PLACEMENT:
+        return np.concatenate([cost.position, cost.orientation])
+    if kind == C.FRAME_TRANSLATION:
+        return np.asarray(cost.position, dtype=np.float64)
+    if kind == C.FRAME_ROTATION:
+        return np.asarray(cost.orientation, dtype=np.float64)
+    if kind == C.FRAME_VELOCITY:
+        return np.concatenate([cost.linear, cost.angular])
+    return np.zeros(0)
+
+
+def _default_ref(slot: C.CostSlot, nx: int) -> np.ndarray:
+    """The reference of a node where the slot's stage has no such cost."""
+    if slot.kind == C.STATE:
+        ref = np.zeros(nx)
+        ref[6] = 1.0
+        return ref
+    if slot.kind in (C.FRAME_PLACEMENT, C.FRAME_ROTATION):
+        ref = np.zeros(slot.ref_dim)
+        ref[-1] = 1.0  # identity quaternion tail
+        return ref
+    return np.zeros(slot.ref_dim)
+
+
+def stage_knots(stages, dt_ms: int) -> Tuple[np.ndarray, int]:
+    """Running knots per stage and the terminal stage index, by the
+    duration-0 rules of the reference's Trajectory::createProblem: a stage
+    shorter than dt contributes 1 knot (and takes one from the next stage)
+    unless it is last, in which case it only becomes the terminal node."""
+    n = len(stages)
+    knots = np.zeros(n, dtype=int)
+    last_d0 = False
+    for i, st in enumerate(stages):
+        if st.duration // dt_ms == 0 and i + 1 < n:
+            knots[i] = 1
+            last_d0 = True
+        else:
+            knots[i] = st.duration // dt_ms - (1 if last_d0 else 0)
+            last_d0 = False
+    return knots, n - 1
+
+
+def from_trajectory(traj: cspecs.TrajectorySpec, dt_ms: Optional[int] = None,
+                    use_squash: Optional[bool] = None,
+                    integrator: Optional[str] = None,
+                    squash_smooth: float = 0.1, dtype=torch.float64,
+                    device=None) -> Tuple[ProblemSpec, ProblemParams]:
+    """Mission spec -> (spec, unbatched params) on ``device`` (default: the
+    card; the caller asks for the CPU explicitly). The stages' differing
+    cost sets become the union of slots with per-node weights and masks;
+    the last stage's model is the terminal node. ``expand_params`` batches
+    the params."""
+    if dt_ms is None:
+        dt_ms = traj.problem_params.dt
+    if use_squash is None:
+        use_squash = traj.problem_params.use_squash
+    if integrator is None:
+        integrator = traj.problem_params.integrator
+    if not integrator:
+        raise ValueError("Problem parameters not specified in the YAML file. "
+                         "Pass dt/use_squash/integrator explicitly.")
+    if traj.has_contact or any(c.type == cspecs.COST_FRICTION_CONE
+                               for st in traj.stages for c in st.costs):
+        raise NotImplementedError(
+            f"{traj.name}: contacts and friction-cone costs come with the "
+            "contact slice of the port")
+    device = torch.device("cuda") if device is None else device
+    integ = _INTEGRATOR_MAP[integrator]
+    model = traj.model
+    nx, nu = model.nx, traj.nu
+
+    # the slot union: one slot per static signature
+    slot_keys = {}
+    slots: list = []
+    slot_specs: list = []
+    stage_slot_idx = []   # per stage: [(slot index, cost)]
+    for st in traj.stages:
+        entries = []
+        for cost in st.costs:
+            key = _slot_key(cost)
+            if key not in slot_keys:
+                slot_keys[key] = len(slots)
+                kind = _KIND_MAP[cost.type]
+                ref_dims = {C.STATE: nx, C.CONTROL: nu}
+                slots.append(C.CostSlot(
+                    name=f"{st.name}/{cost.name}", kind=kind,
+                    activation=_ACT_MAP[cost.activation], nr=cost.nr,
+                    ref_dim=ref_dims.get(kind, C.REF_DIMS.get(kind, cost.nr)),
+                    frame_id=cost.frame_id))
+                slot_specs.append(cost)
+            entries.append((slot_keys[key], cost))
+        stage_slot_idx.append(entries)
+
+    if use_squash:
+        slots.append(C.CostSlot(name=BARRIER_SLOT, kind=C.CONTROL,
+                                activation=C.WQBARRIER, nr=nu, ref_dim=nu))
+        slot_specs.append(None)
+
+    knots, term_stage = stage_knots(traj.stages, dt_ms)
+    T = int(knots.sum())
+    if T <= 0:
+        raise ValueError("Trajectory has no running nodes at this dt")
+
+    spec = ProblemSpec(
+        model=model, nu=nu, tau_f=tuple(map(tuple, traj.platform.tau_f)),
+        slots=tuple(slots), integrator=integ, T=T, dt=dt_ms / 1000.0,
+        use_squash=use_squash)
+
+    K = len(slots)
+    weight = np.zeros((T + 1, K))
+    active = np.zeros((T + 1, K))
+    refs = [np.tile(_default_ref(s, nx), (T + 1, 1)) for s in slots]
+    node_stage = np.zeros(T + 1, dtype=int)
+    t = 0
+    for si in range(len(traj.stages)):
+        for _ in range(knots[si]):
+            node_stage[t] = si
+            t += 1
+    node_stage[T] = term_stage
+    for t in range(T + 1):
+        for k, cost in stage_slot_idx[node_stage[t]]:
+            weight[t, k] = cost.weight
+            active[t, k] = 1.0 if cost.active else 0.0
+            refs[k][t] = _encode_ref(cost, nx, nu)
+
+    s_lb = np.asarray(traj.platform.u_lb, dtype=np.float64)
+    s_ub = np.asarray(traj.platform.u_ub, dtype=np.float64)
+    act_w, lbs, ubs = [], [], []
+    for k, (slot, cost) in enumerate(zip(slots, slot_specs)):
+        if slot.name == BARRIER_SLOT:
+            weight[:T, k] = 1e-3     # the reference's barrier weight
+            active[:T, k] = 1.0
+            act_w.append(act.barrier_quad_weights(s_lb, s_ub, squash_smooth))
+            lbs.append(s_lb.copy())
+            ubs.append(s_ub.copy())
+            continue
+        nr = slot.nr
+        act_w.append(cost.act_weights if cost.act_weights is not None
+                     else np.ones(nr))
+        lbs.append(cost.lower_bound if cost.lower_bound is not None
+                   else np.full(nr, -np.inf))
+        ubs.append(cost.upper_bound if cost.upper_bound is not None
+                   else np.full(nr, np.inf))
+
+    cvt = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64),
+                                    dtype=dtype, device=device)
+    params = ProblemParams(
+        x0=cvt(traj.initial_state),
+        node=NodeParams(weight=cvt(weight), active=cvt(active),
+                        refs=tuple(cvt(r) for r in refs)),
+        glob=GlobalParams(
+            act_w=tuple(cvt(a) for a in act_w), lb=tuple(cvt(a) for a in lbs),
+            ub=tuple(cvt(a) for a in ubs), squash_smooth=cvt(squash_smooth),
+            s_lb=cvt(s_lb), s_ub=cvt(s_ub)))
+    return spec, params

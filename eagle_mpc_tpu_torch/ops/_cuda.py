@@ -42,7 +42,7 @@ MAX_NJ = 6
 MAX_BODIES = MAX_NJ + 1
 MAX_NV = 6 + MAX_NJ
 MAX_NU = 12
-MAX_SLOTS = 8
+MAX_SLOTS = 12
 
 _KIND = {C.STATE: 0, C.CONTROL: 1, C.FRAME_PLACEMENT: 2,
          C.FRAME_TRANSLATION: 3, C.FRAME_ROTATION: 4, C.FRAME_VELOCITY: 5}
@@ -157,7 +157,7 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [_I, _I, _I, _I, real] + [_P] * 13 + [_P] * 6 + [_P]
         fn = getattr(lib, f"eagle_rollout_{prec}")
         fn.restype = _I
-        fn.argtypes = [_P, _P, _I, _I, _I] + [_P] * 10 + [_P] * 4 + [_P]
+        fn.argtypes = [_P, _P, _I, _I, _I, _I] + [_P] * 10 + [_P] * 4 + [_P]
     return lib
 
 

@@ -21,11 +21,14 @@ def _mv(M, v):
 
 
 def backward_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, VxT, VxxT, xreg, ureg,
-                   feasible):
+                   feasible, gains=None):
     """Reverse recursion over T, batched over B (the reference's
     ``fddp._backward_pass`` step). Inputs (B, T, ...) plus the terminal
     (VxT, VxxT) and per-problem xreg/ureg/feasible (B,). Returns (k, K, Qu,
-    Quuk, Vx, Vxx) of the running nodes, (B, T, ...)."""
+    Quuk, Vx, Vxx) of the running nodes, (B, T, ...).
+
+    ``gains(t, Quu, Qu, Qxu) -> (k, K)`` replaces the Cholesky gains (the
+    Box-DDP pass of ``solvers.fddp``, which has no kernel)."""
     B, T, ndx = Lx.shape
     nu = Lu.shape[-1]
     dtype, device = Lx.dtype, Lx.device
@@ -45,9 +48,12 @@ def backward_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, VxT, VxxT, xreg, ureg,
         Quu_raw = Luu[:, t] + FuTV @ fu
         floor = rel_eps * Quu_raw.diagonal(dim1=-2, dim2=-1).abs().amax(dim=-1)
         Quu = Quu_raw + (ureg + floor)[:, None, None] * I_nu
-        chol = CholFactor(Quu)
-        k = chol.solve(Qu)
-        K = chol.solve_mat(Qxu.mT)
+        if gains is None:
+            chol = CholFactor(Quu)
+            k = chol.solve(Qu)
+            K = chol.solve_mat(Qxu.mT)
+        else:
+            k, K = gains(t, Quu, Qu, Qxu)
         Quuk = _mv(Quu, k)
         Vx = Qx + _mv(K.mT, Quuk) - 2.0 * _mv(K.mT, Qu)
         Vxx = Qxx - Qxu @ K

@@ -13,17 +13,20 @@ import torch
 from ..ocp import problem as P
 from . import _cuda
 
-#: kernel launches since the last reset (the plain path does not count)
+#: kernel launches since the last reset (the plain path does not count),
+#: and those of them with the box clip
 LAUNCHES = 0
+BOX_LAUNCHES = 0
 
 
 def rollout_plain(spec: P.ProblemSpec, params: P.ProblemParams, xs, us, k, K,
-                  fs, alphas, keep):
+                  fs, alphas, keep, box: bool = False):
     """FDDP forward pass of the running nodes for every alpha at once.
 
     xs (B, T+1, nx) current states, us/k (B, T, nu), K (B, T, nu, ndx),
-    fs (B, T+1, ndx) gaps, alphas (A,), keep (B, A) gap-contraction mask.
-    Returns xs_try (B, A, T, nx), us_try (B, A, T, nu), per-node costs
+    fs (B, T+1, ndx) gaps, alphas (A,), keep (B, A) gap-contraction mask;
+    ``box`` clips the feedback law's controls to ``s_lb``/``s_ub`` (the
+    Box-DDP rollout). Returns xs_try (B, A, T, nx), us_try (B, A, T, nu), per-node costs
     cs (B, A, T) and the state after the last node xn (B, A, nx)."""
     st = spec.state
     B, A = keep.shape
@@ -37,6 +40,8 @@ def rollout_plain(spec: P.ProblemSpec, params: P.ProblemParams, xs, us, k, K,
         x = torch.where(keep[..., None], x_gap, x)
         dx = st.diff(xs[:, None, t], x)
         u = us[:, None, t] - al * k[:, None, t] - (K[:, None, t] @ dx[..., None])[..., 0]
+        if box:
+            u = torch.minimum(torch.maximum(u, glob.s_lb), glob.s_ub)
         view = P.NodeView(node.weight[:, None, t], node.active[:, None, t],
                           tuple(r[:, None, t] for r in node.refs))
         xn, c, _ = P.node_calc(spec, view, glob, x, u)
@@ -49,11 +54,11 @@ def rollout_plain(spec: P.ProblemSpec, params: P.ProblemParams, xs, us, k, K,
 
 
 def rollout(spec: P.ProblemSpec, params: P.ProblemParams, xs, us, k, K, fs,
-            alphas, keep):
+            alphas, keep, box: bool = False):
     """Same signature and result as :func:`rollout_plain`."""
     if xs.device.type == "cpu":
-        return rollout_plain(spec, params, xs, us, k, K, fs, alphas, keep)
-    global LAUNCHES
+        return rollout_plain(spec, params, xs, us, k, K, fs, alphas, keep, box)
+    global LAUNCHES, BOX_LAUNCHES
     _cuda.require_cuda(xs)
     B, A = keep.shape
     T, nx, nu, ndx = spec.T, spec.model.nx, spec.nu, spec.state.ndx
@@ -71,7 +76,9 @@ def rollout(spec: P.ProblemSpec, params: P.ProblemParams, xs, us, k, K, fs,
     e = lambda *shape: torch.empty((B, A) + shape, dtype=dt, device=dev)
     out = (e(T, nx), e(T, nu), e(T), e(nx))
     _cuda.call("eagle_rollout", dt, *_cuda.descriptor_args(spec, dev), B, A, T,
+               int(box),
                *(a.data_ptr() for a in [t for t, _, _ in ins]
                  + [keep8, node_rows, glob_rows, *out]))
     LAUNCHES += 1
+    BOX_LAUNCHES += int(box)
     return out

@@ -35,3 +35,8 @@ class CholFactor:
 def solve_psd(M, b):
     """x = M^{-1} b for SPD M (..., n, n), b (..., n)."""
     return CholFactor(M).solve(b)
+
+
+def solve_psd_mat(M, B):
+    """X = M^{-1} B for SPD M (..., n, n), B (..., n, m)."""
+    return CholFactor(M).solve_mat(B)

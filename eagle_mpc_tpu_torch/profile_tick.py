@@ -1,18 +1,22 @@
-"""Profile the port's flagship tick on one card: where the time goes.
+"""Profile the port's flagship tick or offline solve on one card: where
+the time goes.
 
-    python3 -m eagle_mpc_tpu_torch.profile_tick [carrot|weighted|rail]
+    python3 -m eagle_mpc_tpu_torch.profile_tick [carrot|weighted|rail|offline]
 
 Runs a path of ``chip_smoke.py`` (hexacopter370_flying_arm_3 displacement,
-offline reference, B=512, float32; the carrot path by default, from its
-start time): the depth-30 warm start and one settle chunk of 10 chained
-ticks, then 3 ticks unprofiled (the tick time) and 3 more under
-``torch.profiler``, with the solver's named functions wrapped in
-``torch.profiler.record_function`` for that window only. Prints the card's
-name and power limit, the span table (ms per call under the profiler,
-calls per tick), the three kernels' device time per launch, and the device
-busy share: the profiler's self device time over the profiled wall time.
-The wrapping lives in this process alone; the main path has no option for
-it. Run from the root of a checkout.
+float32; the carrot path by default). An MPC path (offline reference,
+B=512, from its start time): the depth-30 warm start and one settle chunk
+of 10 chained ticks, then 3 ticks unprofiled (the tick time) and 3 more
+under ``torch.profiler``. ``offline``: the offline solve at B=1 (T=132,
+``sbfddp.solve``, maxiter 400), once to warm up, once unprofiled and once
+under the profiler. The solver's named functions are wrapped in
+``torch.profiler.record_function`` for the profiled window only. Prints
+the card's name and power limit, the span table (ms per call under the
+profiler, calls per tick or per solver iteration), the three kernels'
+device time per launch, and the device busy share: the profiler's self
+device time over the profiled wall time. The wrapping lives in this
+process alone; the main path has no option for it. Run from the root of
+a checkout.
 """
 
 import functools
@@ -45,6 +49,29 @@ def _spans(ctrl_cls):
         (riccati_cuda, "backward", "K3 wrapper"),
         (rollout_cuda, "rollout", "K2 wrapper"),
         (AerialSimulator, "step", "sim_step"),
+    ]
+
+
+def _offline_spans():
+    """(owner, attribute, span name) of each function the offline profile
+    wraps."""
+    from .ocp import problem as P
+    from .ops import node_cuda, riccati_cuda, rollout_cuda
+    from .solvers import fddp
+
+    return [
+        (fddp, "_while_iteration", "while_iteration"),
+        (fddp, "_compute_direction", "compute_direction"),
+        (P, "terminal_calc_diff", "terminal_calc_diff"),
+        (fddp, "_gaps", "gaps"),
+        (fddp, "_backward_pass", "backward_pass"),
+        (fddp, "_line_search", "line_search"),
+        (fddp, "_forward_pass_multi", "forward_pass_multi"),
+        (fddp, "_expected_improvement", "expected_improvement"),
+        (P, "total_cost", "total_cost"),
+        (node_cuda, "calc_diff_running", "K1 wrapper"),
+        (riccati_cuda, "backward", "K3 wrapper"),
+        (rollout_cuda, "rollout", "K2 wrapper"),
     ]
 
 
@@ -100,49 +127,87 @@ def profile(device, batch, path="carrot"):
     sync()
     tick_ms = (time.perf_counter() - t0) / TICKS * 1e3
 
-    spans = _spans(type(ctrl))
+    def run():
+        nonlocal state
+        for _ in range(TICKS):
+            state = tick(state)
+
+    print(f"{path} tick f32 B={B}: {tick_ms:.3f} ms unprofiled", flush=True)
+    _profile_and_report(device, _spans(type(ctrl)), run, TICKS, "tick")
+
+
+def profile_offline(device):
+    """The offline solve of ``chip_smoke``'s phase offline (float32, B=1):
+    warm-up, timed and profiled; prints the report per solver
+    iteration."""
+    import torch
+
+    import chip_smoke as cs
+    from .solvers import sbfddp
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    spec, params = cs.offline_problem(device, torch.float32)
+    solve = lambda: sbfddp.solve(spec, params, maxiter=cs.OFFLINE_MAXITER)
+    solve()
+    sync()
+    t0 = time.perf_counter()
+    res = solve()
+    sync()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    iters = int(res.iters[0])
+    print(f"offline solve f32 B=1 T={spec.T}: {solve_ms:.3f} ms unprofiled, "
+          f"{iters} iterations, {solve_ms / iters:.3f} ms per iteration",
+          flush=True)
+    _profile_and_report(device, _offline_spans(), solve, iters, "iteration")
+
+
+def _profile_and_report(device, spans, run, n, unit):
+    """``run()`` under the profiler with ``spans`` wrapped; prints the span
+    table per ``unit`` (``n`` of them in the run), each kernel's device
+    time per launch and the device busy share."""
+    import torch
+    from torch.autograd import DeviceType
+
     originals = [getattr(owner, attr) for owner, attr, _ in spans]
     for (owner, attr, name), fn in zip(spans, originals):
         setattr(owner, attr, _wrap(fn, name))
+    cuda = device.type == "cuda"
     acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     try:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            for _ in range(TICKS):
-                state = tick(state)
-            sync()
+            run()
+            if cuda:
+                torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         for (owner, attr, _), fn in zip(spans, originals):
             setattr(owner, attr, fn)
 
-    from torch.autograd import DeviceType
-
     events = prof.key_averages()
     by_key = {e.key: e for e in events if e.device_type == DeviceType.CPU}
-    print(f"{path} tick f32 B={B}: {tick_ms:.3f} ms unprofiled, "
-          f"{wall_ms / TICKS:.3f} ms under the profiler ({TICKS} ticks each)",
+    print(f"{wall_ms / n:.3f} ms per {unit} under the profiler ({n} of them)",
           flush=True)
-    print("| Span (profiled) | ms per call | calls per tick |")
+    print(f"| Span (profiled) | ms per call | calls per {unit} |")
     print("|---|---|---|")
-    rows = sorted((by_key[n] for _, _, n in spans if n in by_key),
+    rows = sorted((by_key[name] for _, _, name in spans if name in by_key),
                   key=lambda e: -e.cpu_time_total)
     for e in rows:
         print(f"| `{e.key}` | {e.cpu_time_total / e.count / 1e3:.3f} | "
-              f"{e.count / TICKS:.2f} |")
+              f"{e.count / n:.2f} |")
     for kernel in ("node_kernel", "riccati_kernel", "rollout_kernel"):
         ks = [e for e in events if kernel in e.key and _device_us(e) > 0]
-        n = sum(e.count for e in ks)
-        if n:
-            print(f"{kernel}: {sum(_device_us(e) for e in ks) / n / 1e3:.4f} ms "
-                  f"device time per launch, {n / TICKS:.2f} launches per tick")
+        k = sum(e.count for e in ks)
+        if k:
+            print(f"{kernel}: {sum(_device_us(e) for e in ks) / k / 1e3:.4f} ms "
+                  f"device time per launch, {k / n:.2f} launches per {unit}")
     busy_ms = sum(_device_us(e) for e in events) / 1e3
     launches = sum(e.count for e in events if _device_us(e) > 0)
     print(f"device busy: {busy_ms:.1f} ms of self device time in {wall_ms:.1f} ms "
-          f"of wall, {100 * busy_ms / wall_ms:.1f} %; {launches / TICKS:.0f} "
-          "device operations per tick", flush=True)
+          f"of wall, {100 * busy_ms / wall_ms:.1f} %; {launches / n:.0f} "
+          f"device operations per {unit}", flush=True)
 
 
 def main(args):
@@ -160,7 +225,10 @@ def main(args):
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
     for path in args or ["carrot"]:
-        profile(torch.device("cuda", 0), cs.BATCH, path)
+        if path == "offline":
+            profile_offline(torch.device("cuda", 0))
+        else:
+            profile(torch.device("cuda", 0), cs.BATCH, path)
     return 0
 
 

@@ -1,11 +1,16 @@
-"""Squash-box FDDP: smooth saturation + barrier homotopy, fixed depth.
+"""Squash-box FDDP: smooth saturation + barrier homotopy.
 
-PyTorch counterpart of ``eagle_mpc_tpu.solvers.sbfddp.solve_fixed`` and
-``solve_fixed_batched``: one batched driver serves both the MPC tick and
-the warm-start solve. Each homotopy stage anneals the squash smoothness
-and the barrier weights (parameters, never structure) and runs
-``fddp.solve_fixed``; a DDP polish then runs for the elements that are
-still infeasible, and is skipped when there are none.
+PyTorch counterpart of ``eagle_mpc_tpu.solvers.sbfddp``. Each homotopy
+stage anneals the squash smoothness and the barrier weights (parameters,
+never structure) and runs an FDDP solve; a DDP polish then runs for the
+elements that are still infeasible.
+
+- ``solve``: the offline solve (the reference's SolverSbFDDP::solve), a
+  Python loop over the rows of a :class:`HomotopySchedule`, each row a
+  while-loop solve (``fddp.solve_fddp_or_ddp``).
+- ``solve_fixed``: one batched solve for the MPC tick and its warm start,
+  each stage ``fddp.solve_fixed``; the polish is skipped when every element
+  is feasible.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ class SbFddpSettings:
     convergence_init: float = 1e-2
     convergence_stop: float = 1e-3
     convergence_mult: float = 0.1
+    max_iters: int = 100          # per homotopy stage (solve's default)
     reg_init: float = 1e-9
     solver: fddp.SolverSettings = dataclasses.field(
         default_factory=fddp.SolverSettings)
@@ -45,6 +51,36 @@ class SbFddpSettings:
         return max(n, 1)
 
 
+class HomotopySchedule(NamedTuple):
+    """Homotopy stages and DDP polish, one row per solver stage (tuples of
+    equal length L):
+
+    - FDDP stage: ddp False, th_stop and smooth annealed, maxiter > 0;
+    - DDP polish: ddp True (runs only for still-infeasible elements);
+    - a row with maxiter 0 is a no-op on the candidate."""
+
+    smooth: tuple    # squash smoothness per stage
+    th_stop: tuple   # stage convergence tolerance
+    ddp: tuple       # plain-DDP stage (the polish)
+    phase: tuple     # telemetry label (-2 = polish)
+    maxiter: tuple   # per-stage iteration budget (int or (B,) tensor)
+
+    @classmethod
+    def from_settings(cls, settings: "SbFddpSettings",
+                      maxiter) -> "HomotopySchedule":
+        """The reference schedule: n_stages FDDP stages with annealed
+        (smooth, th_stop), then the DDP polish at the final smoothness."""
+        n = settings.n_stages
+        smooth = tuple(settings.smooth_init * settings.smooth_mult ** k
+                       for k in range(n))
+        th = tuple(settings.convergence_init * settings.convergence_mult ** k
+                   for k in range(n))
+        return cls(smooth=smooth + smooth[-1:],
+                   th_stop=th + (settings.convergence_stop,),
+                   ddp=(False,) * n + (True,), phase=tuple(range(n)) + (-2,),
+                   maxiter=(maxiter,) * (n + 1))
+
+
 class SbFddpResult(NamedTuple):
     xs: torch.Tensor
     us: torch.Tensor           # pre-squash controls
@@ -54,6 +90,8 @@ class SbFddpResult(NamedTuple):
     feasible: torch.Tensor
     failed: torch.Tensor
     smooth: torch.Tensor
+    trace: Optional[fddp.IterTrace] = None   # with settings.solver.record_trace:
+                                             # the stages' traces concatenated
 
 
 def barrier_slot_index(spec: P.ProblemSpec) -> int:
@@ -72,6 +110,54 @@ def _set_homotopy(spec, params: P.ProblemParams, smooth: float) -> P.ProblemPara
     return params._replace(glob=glob._replace(
         squash_smooth=torch.full_like(glob.squash_smooth, smooth),
         act_w=act_w))
+
+
+def solve(spec: P.ProblemSpec, params: P.ProblemParams, xs_init=None,
+          us_init=None, maxiter: Optional[int] = None, feasible: bool = False,
+          settings: Optional[SbFddpSettings] = None,
+          schedule: Optional[HomotopySchedule] = None) -> SbFddpResult:
+    """The offline SbFDDP solve over a batch: ``params`` batched, candidates
+    (B, T+1, nx) / (B, T, nu) (default: x0 tiled, zero controls). One
+    while-loop solve per schedule row (default
+    ``HomotopySchedule.from_settings(settings, maxiter)``, maxiter by
+    default ``settings.max_iters`` per stage). The FDDP rows
+    start infeasible; a polish row starts from the feasibility so far (the
+    caller's ``feasible`` before any FDDP row) and runs with a zero budget
+    for the elements already feasible."""
+    settings = settings or SbFddpSettings()
+    maxiter = settings.max_iters if maxiter is None else maxiter
+    if xs_init is None or us_init is None:
+        xs0, us0 = fddp.default_init(spec, params)
+        xs_init = xs0 if xs_init is None else xs_init
+        us_init = us0 if us_init is None else us_init
+    if schedule is None:
+        schedule = HomotopySchedule.from_settings(settings, maxiter)
+    trace_len = int(maxiter) if settings.solver.record_trace else None
+    B, device = xs_init.shape[0], xs_init.device
+    xs, us = xs_init, us_init
+    feas = torch.full((B,), bool(feasible), device=device)
+    iters = torch.zeros(B, dtype=torch.int32, device=device)
+    failed = torch.zeros(B, dtype=torch.bool, device=device)
+    traces = []
+    for smooth, th_stop, ddp, phase, budget in zip(*schedule):
+        budget = torch.as_tensor(budget, device=device).expand(B)
+        res = fddp.solve_fddp_or_ddp(
+            spec, settings.solver, _set_homotopy(spec, params, smooth), xs, us,
+            torch.where(feas, 0, budget) if ddp else budget, th_stop,
+            settings.reg_init, feas if ddp else False, ddp=ddp,
+            trace_len=trace_len, phase_id=phase)
+        xs, us = res.xs, res.us
+        feas = feas | res.feasible if ddp else res.feasible
+        iters = iters + res.iters
+        failed = failed | res.failed
+        traces.append(res.trace)
+    final = _set_homotopy(spec, params, schedule.smooth[-1])
+    return SbFddpResult(
+        xs=xs, us=us, us_squash=P.squashed_controls(spec, final, us),
+        cost=res.cost, iters=iters, feasible=feas, failed=failed,
+        smooth=torch.full((B,), schedule.smooth[-1], dtype=xs.dtype,
+                          device=device),
+        trace=fddp.concat_traces(traces) if trace_len else None)
 
 
 def solve_fixed(spec: P.ProblemSpec, params: P.ProblemParams, xs, us,

@@ -1,0 +1,114 @@
+"""Offline trajectory generation: a mission YAML solved by SbFDDP.
+
+    python3 -m eagle_mpc_tpu_torch.trajectory [robot] [mission] [--dt 30]
+        [--maxiter 400] [--f64] [--verbose] [--cpu]
+        [--batch B --noise 0.05 --seed S] [--out PATH.npz]
+
+Loads ``missions/<robot>/trajectories/<mission>.yaml``, builds the problem
+(``problem.from_trajectory``, squashed controls, Euler) and solves it with
+``sbfddp.solve`` (homotopy stages of the while-loop FDDP, then the DDP
+polish), on the card unless ``--cpu`` is given. On the card the solve
+runs twice and the second time is the steady one: the first includes the
+kernels' build and torch's lazy loading of its own kernels.
+
+- ``--verbose`` prints the per-iteration trace of element 0;
+- ``--batch B`` solves B copies at once, x0 perturbed by seeded normal
+  noise (sd ``--noise``, quaternion block untouched; element 0 too);
+- ``--out`` writes ``xs``, ``us``, ``us_squash``, ``dt_ms``, ``cost`` and
+  ``iters`` (element 0 at B = 1, the batch otherwise).
+
+Exits 0 when every element ends feasible.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .config import load_trajectory
+from .ocp import problem as P
+from .solvers import fddp, sbfddp
+
+MISSIONS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "missions")
+
+
+def perturbed_x0(x0, batch: int, noise: float, seed: int):
+    """(B, nx) copies of x0 with seeded normal noise off the quaternion."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(batch, x0.shape[-1])) * noise
+    d[:, 3:7] = 0.0
+    return x0 + torch.as_tensor(d, dtype=x0.dtype, device=x0.device)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("robot", nargs="?", default="hexacopter370_flying_arm_3")
+    ap.add_argument("mission", nargs="?", default="displacement")
+    ap.add_argument("--dt", type=int, default=30, help="node duration, ms")
+    ap.add_argument("--maxiter", type=int, default=400)
+    ap.add_argument("--f64", action="store_true")
+    ap.add_argument("--verbose", action="store_true",
+                    help="print the per-iteration solver trace")
+    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--noise", type=float, default=0.05)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, help="write the solution (npz)")
+    args = ap.parse_args(argv)
+
+    if not args.cpu and not torch.cuda.is_available():
+        print("no CUDA device: pass --cpu to solve on the CPU", file=sys.stderr)
+        return 2
+    device = torch.device("cpu" if args.cpu else "cuda")
+    dtype = torch.float64 if args.f64 else torch.float32
+    traj = load_trajectory(f"{args.robot}/trajectories/{args.mission}.yaml",
+                           yaml_dir=MISSIONS)
+    spec, params = P.from_trajectory(traj, dt_ms=args.dt, use_squash=True,
+                                     integrator="IntegratedActionModelEuler",
+                                     dtype=dtype, device=device)
+    pb = P.expand_params(params, args.batch)
+    if args.batch > 1:
+        pb = pb._replace(x0=perturbed_x0(params.x0, args.batch, args.noise,
+                                         args.seed))
+    print(f"{args.robot}/{args.mission}: T={spec.T} nodes, dt={args.dt} ms, "
+          f"nx={spec.model.nx}, nu={spec.nu}, {len(spec.slots)} cost slots, "
+          f"B={args.batch}, {dtype}, {device}", flush=True)
+
+    settings = sbfddp.SbFddpSettings(
+        solver=fddp.SolverSettings(record_trace=args.verbose))
+    runs = 1 if args.cpu else 2
+    for run in range(runs):
+        t0 = time.perf_counter()
+        res = sbfddp.solve(spec, pb, maxiter=args.maxiter, settings=settings)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        it = int(res.iters.max())
+        print(f"solve {run + 1} of {runs}: {ms:.1f} ms, iters max {it} "
+              f"({ms / max(it, 1):.2f} ms per iteration of the slowest "
+              f"element)", flush=True)
+    for b in range(args.batch):
+        print(f"element {b}: iters {int(res.iters[b])} cost "
+              f"{float(res.cost[b]):.10g} feasible {bool(res.feasible[b])} "
+              f"failed {bool(res.failed[b])} final position "
+              f"{res.xs[b, -1, :3].tolist()}")
+    if args.verbose:
+        print(fddp.format_trace(fddp.IterTrace(*(a[0] for a in res.trace))))
+    if args.out:
+        pick = (lambda a: a[0]) if args.batch == 1 else (lambda a: a)
+        host = lambda a: pick(a).detach().cpu().numpy()
+        np.savez(args.out, xs=host(res.xs), us=host(res.us),
+                 us_squash=host(res.us_squash), dt_ms=args.dt,
+                 cost=host(res.cost), iters=host(res.iters))
+        print(f"wrote {args.out}")
+    return 0 if bool(res.feasible.all()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -142,9 +142,9 @@ def test_pack_params_matches_descriptor(ctrls):
 @pytest.mark.parametrize("change", ["rk4", "no_slots", "frame_cost",
                                     "contacts", "friction_cone"])
 def test_out_of_scope_spec_raises(ctrls, change):
-    """The kernels take free dynamics, Euler and up to 8 STATE / CONTROL /
+    """The kernels take free dynamics, Euler and up to 12 STATE / CONTROL /
     frame slots; any other spec raises instead of running a different path
-    (frame_cost: a frame slot past the 8 the kernels hold)."""
+    (frame_cost: a frame slot past the 12 the kernels hold)."""
     spec = ctrls[1].spec
     grip = C.CostSlot("grip", C.FRAME_TRANSLATION, C.QUAD, 3, 3, frame_id=0)
     bad = {

@@ -49,19 +49,25 @@ def state():
     return jc, tc, pj, pt, derivs, term, xs
 
 
-def _run(state, reg, feasible):
+@pytest.fixture(scope="module")
+def jax_backward(state):
+    """JAX's gaps and backward pass, vmapped and compiled once for every
+    case (the regularization and feasibility are data)."""
+    jc = state[0]
+
+    def jax_bp(d, tm, xs1, p, f, reg):
+        fs = Jfddp._gaps(jc.spec, p, xs1, d, f)
+        return Jfddp._backward_pass(jc.spec, d, tm, fs, reg, reg, f), fs
+
+    return jax.jit(jax.vmap(jax_bp))
+
+
+def _run(state, jax_backward, reg, feasible):
     jc, tc, pj, pt, derivs, term, xs = state
     feas = np.full((B,), feasible)
-
-    def jax_bp(d, tm, xs1, p, f):
-        fs = Jfddp._gaps(jc.spec, p, xs1, d, f)
-        return Jfddp._backward_pass(jc.spec, d, tm, fs, jnp.asarray(reg),
-                                    jnp.asarray(reg), f), fs
-
     jd = JP.NodeDerivatives(**{k: jnp.asarray(v) for k, v in derivs.items()})
-    want, fs = jax.jit(jax.vmap(jax_bp))(jd, tuple(map(jnp.asarray, term)),
-                                         jnp.asarray(xs), pj,
-                                         jnp.asarray(feas))
+    want, fs = jax_backward(jd, tuple(map(jnp.asarray, term)), jnp.asarray(xs),
+                            pj, jnp.asarray(feas), jnp.full((B,), reg))
     td = P.NodeDerivatives(**{k: t(v) for k, v in derivs.items()})
     regs = torch.full((B,), reg, dtype=torch.float64)
     got = fddp._backward_pass(tc.spec, td, tuple(map(t, term)), t(fs), regs,
@@ -71,16 +77,16 @@ def _run(state, reg, feasible):
 
 @pytest.mark.parametrize("feasible", [False, True])
 @pytest.mark.parametrize("reg", [1e-9, 1e-3])
-def test_backward_pass_matches_jax(state, reg, feasible):
-    want, got = _run(state, reg, feasible)
+def test_backward_pass_matches_jax(state, jax_backward, reg, feasible):
+    want, got = _run(state, jax_backward, reg, feasible)
     assert np.array_equal(np.asarray(want.ok), got.ok.numpy())
     for name in ("k", "K", "Qu", "Quuk", "Vx", "Vxx"):
         assert rel_err(getattr(want, name), getattr(got, name)) < 1e-10, name
 
 
-def test_non_pd_quu_fails_on_both_sides(state):
+def test_non_pd_quu_fails_on_both_sides(state, jax_backward):
     """A very negative control regularization makes Quu indefinite: both
     packages report a failed pass (ok False) instead of raising."""
-    want, got = _run(state, -1e3, False)
+    want, got = _run(state, jax_backward, -1e3, False)
     assert not np.asarray(want.ok).any()
     assert not got.ok.any()

@@ -33,8 +33,23 @@ def ctrls():
     return controllers()
 
 
+@pytest.fixture(scope="module")
+def jax_rollouts(ctrls):
+    """JAX's forward pass for every alpha, vmapped over the batch and
+    compiled once for both cases (the feasibility is data)."""
+    jc = ctrls[0]
+    settings = fddp.SolverSettings()
+
+    def jax_fp(p, xs1, us1, bp1, fs1, f1):
+        return jax.vmap(lambda a: Jfddp._forward_pass(
+            jc.spec, p, xs1, us1, bp1, fs1, a, f1, True,
+            th_diverge=settings.th_diverge))(jnp.asarray(settings.alphas))
+
+    return jax.jit(jax.vmap(jax_fp))
+
+
 @pytest.mark.parametrize("feasible", [False, True])
-def test_rollouts_match_jax(ctrls, feasible):
+def test_rollouts_match_jax(ctrls, jax_rollouts, feasible):
     jc, tc = ctrls
     fx = np.load(FIXTURE)
     xs, us, x0, t_ms = (fx[k] for k in ("tick_xs_in", "tick_us_in", "x0",
@@ -55,15 +70,8 @@ def test_rollouts_match_jax(ctrls, feasible):
         t1, JP.as_device(jc.params0)._replace(x0=x1)))(jnp.asarray(t_ms),
                                                       jnp.asarray(x0))
     jbp = Jfddp.BackwardPassData(*(jnp.asarray(a.numpy()) for a in bp))
-
-    def jax_fp(p, xs1, us1, bp1, fs1, f1):
-        return jax.vmap(lambda a: Jfddp._forward_pass(
-            jc.spec, p, xs1, us1, bp1, fs1, a, f1, True,
-            th_diverge=settings.th_diverge))(jnp.asarray(settings.alphas))
-
-    want = jax.jit(jax.vmap(jax_fp))(pj, jnp.asarray(xs), jnp.asarray(us), jbp,
-                                     jnp.asarray(fs.numpy()),
-                                     jnp.asarray(feas.numpy()))
+    want = jax_rollouts(pj, jnp.asarray(xs), jnp.asarray(us), jbp,
+                        jnp.asarray(fs.numpy()), jnp.asarray(feas.numpy()))
     diverged = np.asarray(want[3])
     assert np.array_equal(diverged, got[3].numpy())
     ok = ~diverged

@@ -77,7 +77,10 @@ def test_tick_matches_jax(setup):
 
 def test_port_runs_without_jax():
     """Importing the port, building the flagship controller and running one
-    CPU tick at B=2 never imports jax, the JAX package or ``tools``."""
+    CPU tick at B=2, and the offline path (the entry point's module,
+    ``from_trajectory``, one iteration of each stage of ``sbfddp.solve``
+    and of Box-FDDP on iris hover) never imports jax, the JAX package or
+    ``tools``."""
     code = """
 import sys, torch
 torch.set_num_threads(1)
@@ -101,6 +104,20 @@ xs, us = fddp.default_init(ctrl.spec, params)
 res = ctrl.solve(params, xs, us)
 x_next = sim.step(x0, res.us_squash[:, 0])
 assert torch.isfinite(x_next).all() and torch.isfinite(res.cost).all()
+from eagle_mpc_tpu_torch import trajectory
+from eagle_mpc_tpu_torch.solvers import sbfddp
+hover = load_trajectory("iris/trajectories/hover.yaml", yaml_dir="missions")
+for squash in (True, False):
+    spec, p = P.from_trajectory(hover, dt_ms=60, use_squash=squash,
+                                integrator="IntegratedActionModelEuler",
+                                device=torch.device("cpu"))
+    p = P.expand_params(p, 1)
+    if squash:
+        r = sbfddp.solve(spec, p, maxiter=1)
+    else:
+        r = fddp.solve_box_fddp(spec, fddp.SolverSettings(), p,
+                                *fddp.default_init(spec, p), 1, 1e-9)
+    assert torch.isfinite(r.cost).all()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "eagle_mpc_tpu", "tools")
              or m.startswith(("jax.", "eagle_mpc_tpu.", "tools.")))
@@ -158,3 +175,38 @@ def test_kernels_match_plain_on_cuda():
     assert cases["indefinite"][2] <= 10
     for name, (_, rel, _, _) in cases.items():
         assert rel < chip_smoke.PARITY_RTOL, name
+
+
+@pytest.mark.cuda
+def test_offline_kernels_match_plain_on_cuda():
+    """The offline path on the card, float64: a short iris hover
+    ``sbfddp.solve`` through the kernels against its plain run on the CPU
+    (the same iterations and feasibility, states to 1e-8), and K1 and K2
+    with the box clip against their plain versions at the box spec (no
+    squash, no arm)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py checks the kernels "
+                    "on the card")
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from eagle_mpc_tpu_torch.solvers import fddp
+
+    dev = torch.device("cuda")
+    res = {}
+    for d in (dev, CPU):
+        spec, params = chip_smoke.offline_problem(d, F64, "iris", "hover", 60)
+        res[d.type] = sbfddp.solve(spec, params, maxiter=60)
+    for name in ("iters", "feasible", "failed"):
+        assert torch.equal(getattr(res["cuda"], name).cpu(),
+                           getattr(res["cpu"], name)), name
+    np.testing.assert_allclose(res["cuda"].xs.cpu().numpy(),
+                               res["cpu"].xs.numpy(), rtol=0, atol=1e-8)
+    spec, params = chip_smoke.offline_problem(dev, F64, "iris", "hover", 40,
+                                              use_squash=False)
+    xs, us = fddp.default_init(spec, params)
+    r = fddp.solve_fixed(spec, fddp.SolverSettings(), params, xs, us, 3, 1e-9,
+                         box=True)
+    stats = chip_smoke._offline_parity(
+        spec, params, (r.xs, r.us), "iris box", box=True,
+        kernels=("node_linearization", "alpha_rollout"))
+    assert set(stats) == {"node_linearization", "alpha_rollout"}

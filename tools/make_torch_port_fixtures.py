@@ -34,10 +34,33 @@ times in the tick. Besides the ticks:
   XLA path (``cd_*``), the gaps and the gains of one backward pass, and
   the forward pass for each of the 10 alphas (``fp_*``).
 
-Compiling the solvers takes a few minutes on a CPU (about 2 minutes per
-controller). Regenerate all three, or the ones named, with
+The offline path (``torch_port_offline.npz``, ``offline``) is iris, the
+hover mission, from ``problem.from_trajectory``:
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship weighted rail]
+- ``smoke_*``: ``sbfddp.solve`` at dt 60 ms (T = 18) with maxiter 60 and
+  the trace recorded (the JAX package's example smoke solve);
+- ``fddp_*`` / ``ddp_*``: ``fddp.solve_fddp`` / ``solve_ddp`` alone from
+  ``default_init`` at dt 60 (maxiter 30, th_stop 1e-3);
+- ``boxfddp_*`` / ``boxddp_*``: ``fddp.solve_box_fddp`` /
+  ``solve_box_ddp`` at dt 40 ms without the squash (T = 27; maxiter 60,
+  th_stop 1e-9);
+- ``boxqp_*``: ``fddp._boxqp`` on 6 random SPD problems (n = 5) with
+  finite, infinite and active bounds;
+- ``fpbox_*``: ``fddp._forward_pass(box=True)`` for the 10 alphas on the
+  dt-40 box spec at a rough candidate with random gains and gaps
+  (element 0 infeasible, element 1 feasible);
+- ``esc_*``: ``fddp._compute_direction`` vmapped over 2 elements at dt 60
+  from ``default_init``, element 1 with its control-regularization weight
+  set to -1e3, so its backward pass fails until the regularization has
+  escalated;
+- ``batch_*``: ``sbfddp.solve`` vmapped over 3 x0 at dt 60, maxiter 60:
+  the mission's (the smoke solve) and two perturbed (sd 0.05, quaternion
+  untouched, seed 3).
+
+Compiling the solvers takes a few minutes on a CPU (about 2 minutes per
+controller). Regenerate all four, or the ones named, with
+
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship weighted rail offline]
 """
 
 import os
@@ -194,6 +217,120 @@ def forward_pass_fixture(ctrl, fx):
     return out
 
 
+OFFLINE_NAMES = ("xs", "us", "cost", "iters", "feasible", "failed")
+
+
+def offline_fixture(missions):
+    """The offline path's JAX values (module docstring)."""
+    import jax
+    import jax.numpy as jnp
+
+    from eagle_mpc_tpu.config import specs
+    from eagle_mpc_tpu.ocp import problem as P
+    from eagle_mpc_tpu.solvers import fddp, sbfddp
+
+    traj = specs.load_trajectory("iris/trajectories/hover.yaml",
+                                 yaml_dir=missions)
+    euler = "IntegratedActionModelEuler"
+    out = {}
+    host = lambda a: np.asarray(a)
+
+    spec, params = P.from_trajectory(traj, dt_ms=60, use_squash=True,
+                                     integrator=euler)
+    st = sbfddp.SbFddpSettings(solver=fddp.SolverSettings(record_trace=True))
+    r = jax.jit(lambda p: sbfddp.solve(spec, p, maxiter=60, settings=st))(
+        params)
+    out.update({f"smoke_{n}": host(getattr(r, n))
+                for n in OFFLINE_NAMES + ("us_squash",)})
+    out.update({f"smoke_trace_{n}": host(a) for n, a in
+                zip(fddp.IterTrace._fields, r.trace)})
+
+    solver = fddp.SolverSettings()
+    xs0, us0 = fddp.default_init(spec, params)
+    for name, fn in (("fddp", fddp.solve_fddp), ("ddp", fddp.solve_ddp)):
+        r = jax.jit(lambda p: fn(spec, solver, p, xs0, us0, 30, 1e-3))(params)
+        out.update({f"{name}_{n}": host(getattr(r, n)) for n in OFFLINE_NAMES})
+
+    # the escalation: element 1's control regularization weight -1e3
+    k = [s.name for s in spec.slots].index("approach/reg_control")
+    p2 = jax.tree_util.tree_map(lambda a: jnp.stack([a, a]),
+                                P.as_device(params))
+    w = p2.node.weight.at[1, :, k].set(-1e3)
+    p2 = p2._replace(node=p2.node._replace(weight=w))
+    reg = jnp.full((2,), 1e-9)
+
+    def direction(p, xs, us, xr, ur):
+        cost, fs, bp, xr, ur, failed = fddp._compute_direction(
+            spec, solver, p, xs, us, jnp.asarray(False), xr, ur)
+        return xr, ur, failed, bp.ok, bp.k, bp.K
+    esc = jax.jit(jax.vmap(direction))(p2, jnp.stack([xs0, xs0]),
+                                       jnp.stack([us0, us0]), reg, reg)
+    out.update({f"esc_{n}": host(a) for n, a in
+                zip(("xreg", "ureg", "failed", "ok", "k", "K"), esc)})
+    out["esc_slot"] = np.asarray(k)
+
+    rng = np.random.default_rng(3)
+    noise = rng.normal(size=(3, spec.model.nx)) * 0.05
+    noise[:, 3:7] = 0.0
+    noise[0] = 0.0       # element 0 is the smoke solve
+    x0b = np.asarray(params.x0)[None] + noise
+    rb = jax.jit(jax.vmap(lambda x0: sbfddp.solve(
+        spec, P.as_device(params)._replace(x0=x0), maxiter=60)))(x0b)
+    out["batch_x0"] = x0b
+    out.update({f"batch_{n}": host(getattr(rb, n)) for n in OFFLINE_NAMES})
+
+    spec, params = P.from_trajectory(traj, dt_ms=40, use_squash=False,
+                                     integrator=euler)
+    xs0, us0 = fddp.default_init(spec, params)
+    for name, fn in (("boxfddp", fddp.solve_box_fddp),
+                     ("boxddp", fddp.solve_box_ddp)):
+        r = jax.jit(lambda p: fn(spec, solver, p, xs0, us0, 60, 1e-9))(params)
+        out.update({f"{name}_{n}": host(getattr(r, n)) for n in OFFLINE_NAMES})
+
+    # the line search with the clip, at a rough candidate
+    T, nx, nu, ndx = spec.T, spec.model.nx, spec.nu, spec.state.ndx
+    rng = np.random.default_rng(5)
+    hover = float(traj.model.inertia[0][0, 0]) * 9.81 / nu
+    xs = np.tile(np.asarray(params.x0), (2, T + 1, 1))
+    xs += rng.normal(size=xs.shape) * 0.03
+    xs[..., 3:7] /= np.linalg.norm(xs[..., 3:7], axis=-1, keepdims=True)
+    us = hover + rng.normal(size=(2, T, nu)) * 2.0
+    kff = rng.normal(size=(2, T, nu)) * 3.0
+    Kfb = rng.normal(size=(2, T, nu, ndx)) * 0.5
+    fs = rng.normal(size=(2, T + 1, ndx)) * 0.01
+    feas = np.array([False, True])
+    alphas = jnp.asarray(solver.alphas)
+
+    def fp(xs1, us1, k1, K1, fs1, f1):
+        bp = fddp.BackwardPassData(k=k1, K=K1, Qu=k1, Quuk=k1, Vx=fs1,
+                                   Vxx=None, ok=True)
+        return jax.vmap(lambda a: fddp._forward_pass(
+            spec, P.as_device(params), xs1, us1, bp, fs1, a, f1, True,
+            box=True, th_diverge=solver.th_diverge))(alphas)
+    fpr = jax.jit(jax.vmap(fp))(xs, us, kff, Kfb, fs, feas)
+    out.update(fpbox_xs=xs, fpbox_us=us, fpbox_k=kff, fpbox_K=Kfb,
+               fpbox_fs=fs, fpbox_feasible=feas)
+    out.update({f"fpbox_{n}": host(a) for n, a in
+                zip(("xs_try", "us_try", "cost_try", "diverged"), fpr)})
+
+    # the box QP on random problems
+    rng = np.random.default_rng(7)
+    n = 5
+    A = rng.normal(size=(6, n, n))
+    H = A @ A.transpose(0, 2, 1) + 0.1 * np.eye(n)
+    q = rng.normal(size=(6, n)) * 3.0
+    lo = -rng.uniform(0.1, 1.0, size=(6, n))
+    hi = rng.uniform(0.1, 1.0, size=(6, n))
+    lo[:, 0], hi[:, 1] = -np.inf, np.inf
+    lo[0], hi[0] = -np.inf, np.inf
+    x0 = rng.normal(size=(6, n)) * 0.1
+    x, free = jax.jit(jax.vmap(lambda *a: fddp._boxqp(*a, 12)))(H, q, lo, hi,
+                                                                x0)
+    out.update(boxqp_H=H, boxqp_q=q, boxqp_lo=lo, boxqp_hi=hi, boxqp_x0=x0,
+               boxqp_x=host(x), boxqp_free=host(free))
+    return out
+
+
 def main(names):
     import jax
 
@@ -219,7 +356,17 @@ def main(names):
         "rail": RailMpc(mpc_params=mp, state_ref=ref, dt_ref=DT_REF),
     }
     os.makedirs(FIXTURES, exist_ok=True)
-    for name in names or list(ctrls):
+    names = names or list(ctrls) + ["offline"]
+    if "offline" in names:
+        path = os.path.join(FIXTURES, "torch_port_offline.npz")
+        out = offline_fixture(missions)
+        np.savez_compressed(path, **out)
+        print(f"wrote {path}")
+        for n in ("smoke", "fddp", "ddp", "boxfddp", "boxddp", "batch"):
+            print(f"  {n}: iters {out[n + '_iters']} feasible "
+                  f"{out[n + '_feasible']} cost {out[n + '_cost']}")
+        print(f"  esc: xreg {out['esc_xreg']} failed {out['esc_failed']}")
+    for name in (n for n in names if n != "offline"):
         ctrl = ctrls[name]
         out = tick_fixture(ctrl, sim, ref, mp, *TIMES[name], SEEDS[name])
         if name == "flagship":
