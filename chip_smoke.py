@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MPC ticks (Carrot, Weighted, Rail) and its
-offline trajectory generation on one NVIDIA GPU.
+"""Drive the PyTorch port's MPC ticks (Carrot, Weighted, Rail), its
+offline trajectory generation and its closed loop on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -38,7 +38,9 @@ its seconds):
    operations over the f32 rate (no single PyTorch call computes any of
    the three, so there is no library time); K3 also on a ragged batch (the
    first B-3 scenarios) and with an indefinite Quu on every 64th scenario
-   (equal per-scenario failures);
+   (equal per-scenario failures); K1 also at the path's states with
+   every quaternion renormalized and then with its norm moved to
+   1 +- 1e-7;
 5. reference: for each controller the float64 tick and warm start at B=2
    through the kernels against the JAX package's fixture
    (tests/fixtures/torch_port_{flagship,weighted,rail}.npz);
@@ -50,7 +52,8 @@ its seconds):
       (missions/refs/..._dt30.npz): feasible, the same iterations, cost to
       rtol 1e-8, xs and us_squash to OFFLINE_ATOL;
    2. the same in float32 at B=1 (feasible; the steady solve time, its
-      iterations and ms per iteration);
+      iterations and ms per iteration, printed beside the JAX package's
+      float32 solve of tests/fixtures/torch_port_closed_loop.npz);
    3. float32 at B=64 with x0 perturbed (sd 0.05, seed 0, quaternion
       untouched): every element feasible and finite;
    4. the box solvers on iris hover at dt 40 ms without the squash, float64:
@@ -60,13 +63,30 @@ its seconds):
       K2's box branch must have launched;
    5. parity in float64 of K1, K2 and K3 at the converged flagship state
       and of K1 and K2 (with the clip) at the converged box state (nj = 0,
-      no squash), and the kernels' and plain versions' times in float32 at
-      the flagship state (B=1, T=132).
+      no squash), with the box spec's slots and without any (the zero-slot
+      launch), and the kernels' and plain versions' times in float32 at
+      the flagship state (B=1, T=132);
+7. closed loop (``mpc.run_closed_loop`` through ``MpcAbstract.solve``; the
+   launch counts set to 0 before step 1 and read after step 3): the
+   flagship CarrotMpc, x0 the offline reference's first state, the warm
+   start its first T+1 states and T controls, a 2 ms plant:
+   1. float64, B=1, the while-loop route (``fixed=False``), 20 ticks,
+      against tests/fixtures/torch_port_closed_loop.npz: iterations equal,
+      states and controls to rtol 1e-6 / atol 1e-8, costs to rtol 1e-8;
+   2. float32, B=1, the while-loop route, 100 ticks: costs finite, the last
+      tick feasible, the tracking error under bench.py's envelope (mean
+      0.16 m, max 0.35 m); prints ms per tick;
+   3. float32, B=512, the fixed route (``fixed=True``: fixed-depth stages
+      and the while-loop DDP polish), 10 ticks from the bench's perturbed
+      initial states at 0 ms: costs finite, last tick feasible fraction
+      >= 0.99; prints solves/s;
+   4. parity in float64 of K1, K2 and K3 at the state step 1 ends in.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -97,6 +117,11 @@ OFFLINE_MAXITER = 400  # per homotopy stage, as the offline reference's solve
 OFFLINE_BATCH = 64
 OFFLINE_ATOL = 1e-6    # f64 flagship offline solve: xs and us_squash vs JAX
 OFFLINE_PLAIN_REPS = 3  # the plain versions at T=132 take up to seconds a call
+CL_FIXTURE = "torch_port_closed_loop.npz"
+CL_TICKS_F64 = 20      # phase 7 step 1, held to the JAX fixture
+CL_TICKS_F32 = 100     # step 2
+CL_BATCH = 512         # step 3
+CL_TICKS_BATCH = 10
 TIMING_REPS = 20
 # published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): HBM3
 # bytes/s and float32 FLOP/s outside the tensor cores (the kernels use none)
@@ -213,13 +238,15 @@ def tick(ctrl, sim, t_ms, xb, xs, us):
     import torch
 
     from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.solvers import sbfddp
 
     B = xb.shape[0]
     params = ctrl.update_problem(
         torch.full((B,), t_ms, device=xb.device, dtype=xb.dtype),
         P.expand_params(ctrl.params0, B)._replace(x0=xb))
-    r = ctrl.solve(params, xs, us, n_alphas=10, polish="while_fixed",
-                   polish_maxiter=1)
+    r = sbfddp.solve_fixed(ctrl.spec, params, xs, us, depth=ctrl.iters,
+                           settings=ctrl.solver_settings(), n_alphas=10,
+                           polish="while_fixed", polish_maxiter=1)
     return r, sim.step(xb, r.us_squash[:, 0])
 
 
@@ -407,6 +434,28 @@ def bound_ms(inputs, outputs, flops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def quat_norm_parity(spec, params, xs, us):
+    """K1 against its plain version in f64 at the states xs with every
+    quaternion renormalized (|q| = 1 to f64 precision) and then scaled by
+    1 + 1e-7 (even scenarios) or 1 - 1e-7 (odd ones), as a state born in
+    f32 has it: {label: max relative error over the outputs}."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ops import node_cuda
+
+    q = xs[..., 3:7]
+    unit = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    even = torch.arange(xs.shape[0], device=xs.device) % 2 == 0
+    scale = torch.where(even, 1 + 1e-7, 1 - 1e-7).to(xs.dtype)[:, None, None]
+    out = {}
+    for label, qq in (("|q| = 1", unit), ("|q| = 1 +- 1e-7", unit * scale)):
+        x = torch.cat([xs[..., :3], qq, xs[..., 7:]], dim=-1)
+        got = node_cuda.calc_diff_running(spec, params, x, us)
+        want = node_cuda.calc_diff_running_plain(spec, params, x, us)
+        out[label] = max(_err(w, g)[1] for w, g in zip(want, got))
+    return out
+
+
 def phase_parity(device, state, controller="carrot"):
     """Each kernel against its plain version at the end state of a path
     (module docstring, phase 4); returns {kernel: its numbers}."""
@@ -420,6 +469,13 @@ def phase_parity(device, state, controller="carrot"):
         # Cholesky implementations can agree to 1e-9 (at 1e-9 they differ
         # by cond(Quu) * eps ~ 1e-9 at these states)
         calls = kernel_calls(ctrl, params, xs, us, feasible, reg=1e-2)
+        if dtype == torch.float64:
+            for label, rel in quat_norm_parity(ctrl.spec, params, xs,
+                                               us).items():
+                say(f"{controller} parity f64 node_linearization at states "
+                    f"with {label}: max rel {rel:.3e} (gate {PARITY_RTOL:g})")
+                check(rel <= PARITY_RTOL, f"{controller} node_linearization "
+                      f"at {label}: kernel differs from its plain version")
         for name, (kern, plain, ins, flops) in calls.items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
@@ -599,6 +655,13 @@ def phase_offline(device):
         f"{float(res1.cost[0])!r}, feasible {bool(res1.feasible[0])}")
     check(bool(res1.feasible[0]) and bool(torch.isfinite(res1.xs).all()),
           "offline flagship f32 B=1: not feasible")
+    fxc = np.load(os.path.join(ROOT, "tests", "fixtures", CL_FIXTURE))
+    say(f"offline flagship f32 B=1 beside the JAX package's f32 solve on a "
+        f"CPU: iters {it} (JAX {int(fxc['off32_iters'])}), cost "
+        f"{float(res1.cost[0])!r} (JAX {float(fxc['off32_cost'])!r}), "
+        f"feasible {bool(res1.feasible[0])} (JAX "
+        f"{bool(fxc['off32_feasible'])}); f64: iters {int(ref['iters'])}, "
+        f"cost {float(ref['cost'])!r}")
 
     # 3. the flagship in f32 at B = 64, x0 perturbed
     pb = P.expand_params(P.map_params(lambda a: a[0], params32), OFFLINE_BATCH)
@@ -656,8 +719,25 @@ def phase_offline(device):
     box_stats = _offline_parity(bspec, bparams, box_state, "iris box",
                                 box=True, kernels=("node_linearization",
                                                    "alpha_rollout"))
+    # the zero-slot launch of K1 and K2: the box spec with its slots removed
+    sl_stats = _offline_parity(*without_slots(bspec, bparams), box_state,
+                               "iris slot-less", box=True,
+                               kernels=("node_linearization", "alpha_rollout"))
+    for name, r in sl_stats.items():
+        box_stats[name]["slotless_max_abs_err"] = r["max_abs_err"]
     _offline_times(spec32, params32, converged, stats)
     return launches, stats, box_stats
+
+
+def without_slots(spec, params):
+    """(spec, params) with every cost slot removed: the dynamics alone."""
+    import dataclasses
+
+    node, glob = params.node, params.glob
+    return dataclasses.replace(spec, slots=()), params._replace(
+        node=node._replace(weight=node.weight[..., :0],
+                           active=node.active[..., :0], refs=()),
+        glob=glob._replace(act_w=(), lb=(), ub=()))
 
 
 def _offline_parity(spec, params, state, label, box, kernels=None):
@@ -711,6 +791,141 @@ def _offline_times(spec, params, state, stats):
             f"plain {r['plain_ms']:.3f} ms (medians of {TIMING_REPS} and "
             f"{OFFLINE_PLAIN_REPS}), bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the closed loop (run_closed_loop, MpcAbstract.solve's two routes)
+# ---------------------------------------------------------------------------
+
+def _recording(ctrl):
+    """Wrap the controller's solve so that each tick's feasibility is kept
+    (run_closed_loop returns iterations and costs only); returns the list."""
+    feasible, solve = [], ctrl.solve
+
+    def recorded(*args, **kw):
+        res = solve(*args, **kw)
+        feasible.append(res.feasible)
+        return res
+    ctrl.solve = recorded
+    return feasible
+
+
+def closed_loop_setup(device, dtype):
+    """The flagship closed loop of phase 7: (controller, plant, offline
+    reference, hover thrust, rotors, x0 (1, nx) the reference's first
+    state, the warm start: its first T+1 states (1, T+1, nx) and T controls
+    (1, T, nu))."""
+    import torch
+
+    with np.load(os.path.join(ROOT, "missions", "refs",
+                              f"{ROBOT}__{MISSION}__dt{DT_REF}.npz")) as z:
+        ref_us = z["us"]
+    ctrl, sim, ref, hover, n_rot = flagship(device, dtype)
+    T = ctrl.spec.T
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return (ctrl, sim, ref, hover, n_rot, t(ref[:1]), t(ref[None, :T + 1]),
+            t(ref_us[None, :T]))
+
+
+def phase_closed_loop(device):
+    """The closed loop (module docstring, phase 7). Returns (launches per
+    kernel in steps 1 to 3, {kernel: f64 parity at step 1's end state})."""
+    import torch
+
+    from eagle_mpc_tpu_torch.mpc import run_closed_loop
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.ops import node_cuda, riccati_cuda, rollout_cuda
+
+    mods = {"node_linearization": node_cuda, "riccati_backward": riccati_cuda,
+            "alpha_rollout": rollout_cuda}
+    fx = np.load(os.path.join(ROOT, "tests", "fixtures", CL_FIXTURE))
+    setup = functools.partial(closed_loop_setup, device)
+
+    for m in mods.values():
+        m.LAUNCHES = 0
+
+    # 1. float64, B = 1, the while-loop route, against the JAX fixture
+    ctrl, sim, ref, _, _, x0, xs_w, us_w = setup(torch.float64)
+    t0 = time.time()
+    out = run_closed_loop(ctrl, sim, x0, xs_w, us_w, n_steps=CL_TICKS_F64,
+                          dt_sim_ms=DT_SIM)
+    sec = time.time() - t0
+    got = {"states": out.states[0], "controls": out.controls[0],
+           "costs": out.costs[0]}
+    d = {n: float(np.abs(a.numpy() - fx[f"flag_{n}"]).max())
+         for n, a in got.items()}
+    spread = {n: float(np.abs(fx[f"flag_{n}"] - fx[f"flag_eps_{n}"]).max())
+              for n in got}
+    say(f"closed loop f64 B=1 fixed=False {CL_TICKS_F64} ticks: {sec:.3f} s, "
+        f"iters {out.solve_iters[0].tolist()} (JAX "
+        f"{fx['flag_solve_iters'].tolist()}), max |diff| from JAX "
+        f"{json.dumps(d)}; JAX's own spread from x0 + 1e-12: "
+        f"{json.dumps(spread)}")
+    check(np.array_equal(out.solve_iters[0].numpy(), fx["flag_solve_iters"]),
+          "closed loop f64: iterations differ from the JAX fixture")
+    for n in ("states", "controls"):
+        np.testing.assert_allclose(got[n].numpy(), fx[f"flag_{n}"], rtol=1e-6,
+                                   atol=1e-8, err_msg=f"closed loop f64 {n}")
+    np.testing.assert_allclose(got["costs"].numpy(), fx["flag_costs"],
+                               rtol=1e-8, err_msg="closed loop f64 costs")
+    end = (CL_TICKS_F64 * DT_SIM, out.states[:, -1], out.xs, out.us)
+
+    # 2. float32, B = 1, the while-loop route, tracking the reference
+    ctrl, sim, ref, hover, n_rot, x0, xs_w, us_w = setup(torch.float32)
+    feas = _recording(ctrl)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = run_closed_loop(ctrl, sim, x0, xs_w, us_w, n_steps=CL_TICKS_F32,
+                          dt_sim_ms=DT_SIM)
+    sec = time.time() - t0
+    pos = out.states[0, 1:, :3].double().numpy()
+    err = np.linalg.norm(pos - np.stack([_ref_pos(ref, (i + 1) * DT_SIM)
+                                         for i in range(CL_TICKS_F32)]), axis=1)
+    costs = out.costs[0].numpy()
+    health = {"last_feasible": bool(feas[-1][0]),
+              "track_err_mean_m": float(err.mean()),
+              "track_err_max_m": float(err.max()),
+              "iters_total": int(out.solve_iters.sum())}
+    say(f"closed loop f32 B=1 fixed=False {CL_TICKS_F32} ticks: {sec:.3f} s, "
+        f"{sec / CL_TICKS_F32 * 1e3:.3f} ms per tick; {json.dumps(health)}")
+    check(np.all(np.isfinite(costs)), "closed loop f32: non-finite tick costs")
+    check(health["last_feasible"], "closed loop f32: last tick infeasible")
+    check(health["track_err_mean_m"] < 0.16 and health["track_err_max_m"] < 0.35,
+          f"closed loop f32: tracking error {health}")
+
+    # 3. float32, B = 512, the fixed route (polish "while"), perturbed starts
+    x0b, xsb, usb = initial_batch(ctrl, ref, hover, n_rot, CL_BATCH, 0.0,
+                                  device, torch.float32)
+    feas.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = run_closed_loop(ctrl, sim, x0b, xsb, usb, n_steps=CL_TICKS_BATCH,
+                          dt_sim_ms=DT_SIM, fixed=True)
+    sec = time.time() - t0
+    frac = float(feas[-1].float().mean())
+    say(f"closed loop f32 B={CL_BATCH} fixed=True {CL_TICKS_BATCH} ticks: "
+        f"{sec:.3f} s, {CL_BATCH * CL_TICKS_BATCH / sec:.1f} solves/s, "
+        f"{sec / CL_TICKS_BATCH * 1e3:.3f} ms per tick, last tick feasible "
+        f"{frac:.4f}, iters per tick {out.solve_iters.float().mean(0).tolist()}")
+    check(bool(torch.isfinite(out.costs).all()),
+          "closed loop fixed: non-finite tick costs")
+    check(frac >= 0.99, f"closed loop fixed: feasible fraction {frac}")
+    torch.cuda.synchronize()
+    launches = {n: m.LAUNCHES for n, m in mods.items()}
+    say(f"closed_loop launches during steps 1 to 3: {json.dumps(launches)}")
+    for n in mods:
+        check(launches[n] > 0, f"closed_loop: {n}: no kernel launch")
+
+    # 4. f64 parity at step 1's end state (B = 1 tiled to 2: element 0
+    # feasible, element 1 not)
+    ctrl = flagship(device, torch.float64)[0]
+    t_ms, xb, xs, us = end
+    params = ctrl.update_problem(
+        torch.full((1,), t_ms, device=device, dtype=torch.float64),
+        P.expand_params(ctrl.params0, 1)._replace(x0=xb.to(device)))
+    stats = _offline_parity(ctrl.spec, params, (xs, us), "closed_loop",
+                            box=False)
+    return launches, stats
 
 
 # ---------------------------------------------------------------------------
@@ -852,6 +1067,9 @@ def main():
     t_phase = time.time()
     off_launches, off_stats, box_stats = phase_offline(device)
     say(f"phase offline: {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    cl_launches, cl_stats = phase_closed_loop(device)
+    say(f"phase closed_loop: {time.time() - t_phase:.1f} s")
     foreign = sorted(m for m in sys.modules
                      if m in ("jax", "eagle_mpc_tpu", "tools")
                      or m.startswith(("jax.", "eagle_mpc_tpu.", "tools.")))
@@ -863,7 +1081,8 @@ def main():
          "launches": paths["carrot"][0][name],
          "launches_per_tick": paths["carrot"][1][name],
          "launches_per_path": dict({p: paths[p][0][name] for p in PATHS},
-                                   offline=off_launches[name]),
+                                   offline=off_launches[name],
+                                   closed_loop=cl_launches[name]),
          "max_abs_err": main_stats[name]["max_abs_err"],
          "ms": main_stats[name]["ms"], "plain_ms": main_stats[name]["plain_ms"],
          "bound_ms": main_stats[name]["bound_ms"],
@@ -872,7 +1091,9 @@ def main():
                       ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "offline": {k: off_stats[name][k] for k in
                      ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-         **({"offline_box_max_abs_err": box_stats[name]["max_abs_err"]}
+         "closed_loop_max_abs_err": cl_stats[name]["max_abs_err"],
+         **({"offline_box_max_abs_err": box_stats[name]["max_abs_err"],
+             "slotless_max_abs_err": box_stats[name]["slotless_max_abs_err"]}
             if name in box_stats else {})}
         for name, src, rep in KERNELS]}
     say(json.dumps(record))

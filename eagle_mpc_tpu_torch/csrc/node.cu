@@ -26,9 +26,15 @@
 //    against the shared L each.
 // 3. The Euler step and the state difference enter through two 6 x 6 base
 //    blocks per node: [Fx Fu] e_j = blockdiag(Ez, I) e_j + blockdiag(ED, I)
-//    dD_j, dD_j = [(dv_j + da_j dt) dt, da_j dt], with Ez the adjoint of
-//    exp6(D0)^-1 (closed form) and ED the right Jacobian of exp6 at D0 (a
-//    dual column per lane). The x-only slots' Jacobians take one dual
+//    dD_j, dD_j = [(dv_j + da_j dt) dt, da_j dt], with Ez = d/dz
+//    (x (+) z (+) D^) (-) xnext0 (closed form: euler_z_block) and ED =
+//    d/dD (x^ (+) D) (-) xnext0 at D^ (a dual column per lane). x^ = x (+) 0
+//    is x with its quaternion
+//    normalized and D^ the Euler increment there: the plain version
+//    differentiates through x (+) z, so a state whose quaternion has a norm
+//    off 1 (one born in f32: 1 +- 1e-7) is linearized at x^ (its gravity
+//    tangent too), while xnext0 and the slots' rows stay at x. The x-only
+//    slots' Jacobians take one dual
 //    column per lane in the same pass: for a STATE slot only its 6 x 6
 //    base block (the rest is the identity); a frame slot (placement,
 //    translation, rotation, velocity) all ndx columns of its rows, each
@@ -84,6 +90,8 @@ struct K1Layout {
   int ED;     // [6][6] base block of d/dD (x (+) D) (-) xnext0 at D0 (the
               // Euler increment)
   int Jx;     // [slot_jac_rows of the x-only slots][ndx] their Jacobians
+  int xh;     // [nx] x^ = x (+) 0, the quaternion normalized
+  int Dh;     // [ndx] D^, the Euler increment at x^
   int val;    // [n_res] residual values
   int act;    // [n_res] each row's share of 2 a
   int wA;     // [n_res] w * A_r
@@ -107,6 +115,8 @@ __host__ __device__ inline K1Layout k1_layout(const ModelDesc& d) {
   o.Ez = at;  at += EM_BASE_NDX * EM_BASE_NDX;
   o.ED = at;  at += EM_BASE_NDX * EM_BASE_NDX;
   o.Jx = at;  at += rows * ndx;
+  o.xh = at;  at += d.nq + nv;
+  o.Dh = at;  at += ndx;
   o.val = at; at += n_res;
   o.act = at; at += n_res;
   o.wA = at;  at += n_res;
@@ -167,21 +177,21 @@ __device__ __forceinline__ void tan_force_to_parent(const S* p, const S* R, cons
 // the body accelerations and the subtree forces of RNEA(x, a)), which is
 // read, not recomputed.
 template <class S>
-__device__ __noinline__ void rnea_tangent(const ModelDesc& d, const CoopNode<S>& W, int j,
-                                          S* out) {
+__device__ __noinline__ void rnea_tangent(const ModelDesc& d, const CoopNode<S>& W, const S* qh,
+                                          int j, S* out) {
   const int nq = d.nq, nv = d.nv, nj = d.nj;
   S dvel[EM_MAX_BODIES][6], dacc[EM_MAX_BODIES][6], dF[EM_MAX_BODIES][6];
   S dps[EM_MAX_BODIES][3], dRs[EM_MAX_BODIES][9];
   // the base: a velocity direction moves its velocity; under a rotation
   // direction R -> R exp([t e]x), gravity in the base g = R^T g_w moves by
-  // g x e
+  // g x e, with R that of the normalized quaternion qh (x (+) z normalizes)
   for (int i = 0; i < 6; ++i) {
     dvel[0][i] = S(j == nv + i ? 1 : 0);
     dacc[0][i] = S(0);
   }
   if (j >= 3 && j < 6) {
     S gw[3] = {S(0), S(0), S(d.gravity)}, g[3], e[3];
-    quat_rotate_inv<S, S>(W.xt + 3, gw, g);
+    quat_rotate_inv<S, S>(qh, gw, g);
     for (int i = 0; i < 3; ++i) e[i] = S(j - 3 == i ? 1 : 0);
     cross3(g, e, dacc[0]);
   }
@@ -269,17 +279,77 @@ __device__ __noinline__ void control_tangent(const ModelDesc& d, const CoopNode<
   for (int r = 0; r < d.nv; ++r) out[r] = tau[r].d;
 }
 
-// Ez = the adjoint of exp6(D0)^-1, i.e. the motion transform to the pose
-// exp6(D0). Out of line, like the heavy functions of model.cuh: inlined
-// into the kernel body, nvcc 12.8 gave a wrong Ez block (1e-5 relative in
-// Fx, in f64 or in f32 depending on the code around it), which the f64
-// parity gate on the card caught.
+// xh = x (+) 0 (x with its quaternion normalized) and Dh, the Euler
+// increment at xh: the acceleration there differs from the primal's at x
+// (W.rhs, W.inc) by the base-frame gravity alone, a = M^-1 (tau - b) -
+// [g_base, 0] with M and b independent of the base's attitude.
 template <class S>
-__device__ __noinline__ void euler_adjoint(const S* D0, S* Ez) {
-  S p[3], q[4], R[9];
-  exp6<S, S>(D0, p, q);
+__device__ __noinline__ void hat_point(const ModelDesc& d, const CoopNode<S>& W, S* xh, S* Dh) {
+  const int nx = d.nq + d.nv, nv = d.nv;
+  for (int i = 0; i < nx; ++i) xh[i] = W.xt[i];
+  quat_normalize(xh + 3);
+  S gw[3] = {S(0), S(0), S(d.gravity)}, g[3], gh[3];
+  quat_rotate_inv<S, S>(W.xt + 3, gw, g);
+  quat_rotate_inv<S, S>(xh + 3, gw, gh);
+  const S dt = S(d.dt);
+  for (int i = 0; i < 2 * nv; ++i) Dh[i] = W.inc[i];
+  for (int i = 0; i < 3; ++i) {
+    const S da = g[i] - gh[i];
+    Dh[i] = Dh[i] + da * dt * dt;
+    Dh[nv + i] = Dh[nv + i] + da * dt;
+  }
+}
+
+// Ez = d/dz (x (+) z (+) Dh) (-) xn at z = 0, in closed form: with
+// xi0 = (xh (+) Dh) (-) xn (tiny, xh = x (+) 0),
+// Ez = (I + ad(xi0) / 2) Ad(exp6(Dh)^-1) T. The first factor is the
+// inverse right Jacobian of log6 at xi0 to first order (its error is
+// O(|xi0|^2), below 1e-16 here), the second the motion transform to the
+// pose exp6(Dh), and T = blockdiag(s2 I + (1 - s2) Rh^T, I) maps z to the
+// tangent at xh: x (+) z moves the position by rotate(q, z_p) = (s2 Rh +
+// (1 - s2) I) z_p for a quaternion q of squared norm s2 (Rh: the rotation
+// of q / |q|). Out of line: inlined into the kernel body, nvcc 12.8 gave a
+// wrong closed-form block (1e-5 relative in Fx), which the f64 parity
+// gate on the card caught.
+template <class S>
+__device__ __noinline__ void euler_z_block(const ModelDesc& d, const S* x, const S* xh,
+                                           const S* Dh, const S* xn, S* Ez) {
+  S p[3], q[4], R[9], Rh[9], X[36], XT[36], y[EM_MAX_NX], xi[EM_MAX_NDX];
+  exp6<S, S>(Dh, p, q);
   quat_to_rot<S, S>(q, R);
-  for (int e = 0; e < EM_BASE_NDX * EM_BASE_NDX; ++e) Ez[e] = xform_entry<S, S>(R, p, e);
+  for (int e = 0; e < 36; ++e) X[e] = xform_entry<S, S>(R, p, e);
+  const S* qr = x + 3;
+  const S s2 = qr[0] * qr[0] + qr[1] * qr[1] + qr[2] * qr[2] + qr[3] * qr[3];
+  quat_to_rot<S, S>(xh + 3, Rh);
+  for (int r = 0; r < 6; ++r)
+    for (int c = 0; c < 6; ++c) {
+      S t = X[6 * r + c];
+      if (c < 3) {
+        t = S(0);
+        for (int m = 0; m < 3; ++m)
+          t = t + X[6 * r + m] * ((m == c ? s2 : S(0)) + (S(1) - s2) * Rh[3 * c + m]);
+      }
+      XT[6 * r + c] = t;
+    }
+  integrate<S, S>(d, xh, Dh, y);
+  state_diff<S, S>(d, xn, y, xi);
+  // ad(xi) = [[w^, v^], [0, w^]] for xi = [v, w]
+  const S* v = xi;
+  const S* w = xi + 3;
+  const S hv[9] = {S(0), -v[2], v[1], v[2], S(0), -v[0], -v[1], v[0], S(0)};
+  const S hw[9] = {S(0), -w[2], w[1], w[2], S(0), -w[0], -w[1], w[0], S(0)};
+  for (int r = 0; r < 6; ++r)
+    for (int c = 0; c < 6; ++c) {
+      S acc = XT[6 * r + c];
+      for (int m = 0; m < 6; ++m) {
+        S a = S(0);
+        if (r < 3 && m < 3) a = hw[3 * r + m];
+        else if (r < 3) a = hv[3 * r + m - 3];
+        else if (m >= 3) a = hw[3 * (r - 3) + m - 3];
+        acc = acc + S(0.5) * a * XT[6 * m + c];
+      }
+      Ez[6 * r + c] = acc;
+    }
 }
 
 // one dual column of the Euler step's base block: rows r < 6 of
@@ -338,6 +408,8 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
   S* Ez = sm + lay.Ez;
   S* ED = sm + lay.ED;
   S* Jx = sm + lay.Jx;
+  S* xh = sm + lay.xh;
+  S* Dh = sm + lay.Dh;
   S* val = sm + lay.val;
   S* act = sm + lay.act;
   S* wA = sm + lay.wA;
@@ -357,7 +429,10 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
   // body accelerations and subtree forces the tangents read
   coop_dyn_next<S, 32>(d, lane, W);
   __syncwarp();
-  if (lane == 0) rnea_forward<S, S>(d, W.xt, W.rhs, W.k, W.acc);
+  if (lane == 0) {
+    rnea_forward<S, S>(d, W.xt, W.rhs, W.k, W.acc);
+    hat_point<S>(d, W, xh, Dh);
+  }
   __syncwarp();
   for (int b = lane; b <= d.nj; b += 32) body_force<S, S>(d, b, W.acc[b], W.k.vel[b], W.force[b]);
   __syncwarp();
@@ -369,19 +444,19 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
   for (int j = lane; j < nz; j += 32) {
     S* daj = DA + j * nv;
     if (j < ndx)
-      rnea_tangent<S>(d, W, j, daj);
+      rnea_tangent<S>(d, W, xh + 3, j, daj);
     else
       control_tangent<S>(d, W, gp, j - ndx, daj);
     chol_solve(W.M, nv, EM_MAX_NV, daj);
   }
   // dual columns, one pass with a column per lane: ED, the base block of
-  // d/dD (x (+) D) (-) xnext0 at the Euler increment D0, and the x-only
-  // slots' Jacobians. Ez = d/dz (x (+) z (+) D0) (-) xnext0 is the adjoint
-  // of exp6(D0)^-1, the motion transform to the pose exp6(D0).
-  if (lane == 0) euler_adjoint<S>(W.inc, Ez);
+  // d/dD (x^ (+) D) (-) xnext0 at D^, and the x-only slots' Jacobians (at
+  // x). Ez = d/dz (x (+) z (+) D^) (-) xnext0 is closed form
+  // (euler_z_block).
+  if (lane == 0) euler_z_block<S>(d, W.xt, xh, Dh, W.xc, Ez);
   for (int task = lane; task < EM_BASE_NDX + lay.n_tasks; task += 32) {
     if (task < EM_BASE_NDX) {
-      dual_column<S>(d, W.xt, task, W.inc, W.xc, ED + task, EM_BASE_NDX);
+      dual_column<S>(d, xh, task, Dh, W.xc, ED + task, EM_BASE_NDX);
       continue;
     }
     int k = 0, row = 0, xrow = 0, j = task - EM_BASE_NDX;

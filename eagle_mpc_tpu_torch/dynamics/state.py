@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import lie
@@ -33,6 +34,24 @@ class State(NamedTuple):
     @property
     def nj(self) -> int:
         return self.nq - 7
+
+    def zero(self, dtype=torch.float64, device=None) -> torch.Tensor:
+        """The origin: zero position, identity attitude, zero joints and
+        velocities (nx,)."""
+        x = torch.zeros(self.nx, dtype=dtype, device=device)
+        x[6] = 1.0
+        return x
+
+    def rand(self, rng: np.random.Generator, dtype=torch.float64,
+             device=None) -> torch.Tensor:
+        """A random state (nx,) with a unit quaternion, drawn from the numpy
+        generator as the JAX package draws it (a seed gives the same state
+        in both)."""
+        q = rng.normal(size=4)
+        q /= np.linalg.norm(q)
+        x = rng.normal(size=self.nx)
+        x[3:7] = q
+        return torch.as_tensor(x, dtype=dtype, device=device)
 
     def integrate(self, x, dx):
         """x (+) dx with dx = [xi_base (6), dq_joints, dv (nv)]."""
@@ -55,3 +74,9 @@ class State(NamedTuple):
                                       q1[..., :3], q1[..., 3:7], alpha)
         qj = q0[..., 7:] + alpha.unsqueeze(-1) * (q1[..., 7:] - q0[..., 7:])
         return torch.cat([p, quat, qj], dim=-1)
+
+    def normalize(self, x):
+        """x with its quaternion block renormalized (drift control in long
+        rollouts)."""
+        return torch.cat([x[..., :3], lie.quat_normalize(x[..., 3:7]),
+                          x[..., 7:]], dim=-1)

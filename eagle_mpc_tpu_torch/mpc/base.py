@@ -61,8 +61,16 @@ class MpcAbstract:
         return self.mpc_params.iters
 
     @property
+    def solver_type(self) -> str:
+        return self.mpc_params.solver
+
+    @property
     def use_squash(self) -> bool:
         return self.mpc_params.solver == cspecs.SOLVER_SBFDDP
+
+    @property
+    def state(self):
+        return self.spec.state
 
     def update_problem(self, t_ms, params: P.ProblemParams) -> P.ProblemParams:
         raise NotImplementedError
@@ -73,26 +81,39 @@ class MpcAbstract:
 
     def solve(self, params: P.ProblemParams, xs, us, maxiter: Optional[int] = None,
               settings: Optional[sbfddp.SbFddpSettings] = None,
-              n_alphas: Optional[int] = None, polish: str = "while_fixed",
-              polish_maxiter: Optional[int] = None):
-        """One warm-started batched MPC solve: SbFDDP on the fixed-depth
-        path, or the mission's box solver (Box-FDDP/Box-DDP, the while
-        loop on raw controls: the spec has no squash)."""
-        if not self.use_squash:
-            box = (fddp.solve_box_fddp
-                   if self.mpc_params.solver == cspecs.SOLVER_BOX_FDDP
-                   else fddp.solve_box_ddp)
-            res = box(self.spec, fddp.SolverSettings(), params, xs, us,
-                      int(self.iters if maxiter is None else maxiter), 1e-9)
-            return sbfddp.SbFddpResult(
-                xs=res.xs, us=res.us, us_squash=res.us, cost=res.cost,
-                iters=res.iters, feasible=res.feasible, failed=res.failed,
-                smooth=torch.zeros_like(res.cost))
-        return sbfddp.solve_fixed(
-            self.spec, params, xs, us,
-            depth=int(self.iters if maxiter is None else maxiter),
-            settings=settings or self.solver_settings(), n_alphas=n_alphas,
-            polish=polish, polish_maxiter=polish_maxiter)
+              schedule: Optional[sbfddp.HomotopySchedule] = None,
+              fixed: bool = False, n_alphas: Optional[int] = None):
+        """One warm-started batched MPC solve (``maxiter`` by default the
+        controller's ``iters``):
+
+        - SbFDDP: the while-loop ``sbfddp.solve`` (``schedule`` overrides
+          its homotopy rows), or with ``fixed=True`` the fixed-depth
+          ``sbfddp.solve_fixed`` at depth ``maxiter`` with its default
+          polish (``n_alphas`` truncates its line-search ladder; a
+          ``schedule`` is refused);
+        - a box mission: Box-FDDP/Box-DDP, the while loop on raw controls
+          (the spec has no squash)."""
+        maxiter = int(self.iters if maxiter is None else maxiter)
+        if self.solver_type == cspecs.SOLVER_SBFDDP:
+            settings = settings or self.solver_settings()
+            if fixed:
+                if schedule is not None:
+                    raise ValueError("fixed=True uses a static stage layout; "
+                                     "schedule rows are a while-solver feature")
+                return sbfddp.solve_fixed(self.spec, params, xs, us,
+                                          depth=maxiter, settings=settings,
+                                          n_alphas=n_alphas)
+            return sbfddp.solve(self.spec, params, xs, us, maxiter=maxiter,
+                                settings=settings, schedule=schedule)
+        box = (fddp.solve_box_fddp
+               if self.solver_type == cspecs.SOLVER_BOX_FDDP
+               else fddp.solve_box_ddp)
+        res = box(self.spec, fddp.SolverSettings(), params, xs, us, maxiter,
+                  1e-9)
+        return sbfddp.SbFddpResult(
+            xs=res.xs, us=res.us, us_squash=res.us, cost=res.cost,
+            iters=res.iters, feasible=res.feasible, failed=res.failed,
+            smooth=torch.zeros_like(res.cost))
 
     def _finalize_problem(self, slots, slot_weights, slot_active, slot_refs,
                           act_w, lbs, ubs, x0=None, squash_smooth=0.1):

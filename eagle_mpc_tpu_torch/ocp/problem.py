@@ -158,8 +158,6 @@ def check_scope(spec: ProblemSpec) -> None:
         raise NotImplementedError("only the Euler integrator is ported")
     if spec.contacts:
         raise NotImplementedError("contact dynamics are not ported yet")
-    if not spec.slots:
-        raise NotImplementedError("a spec needs at least one cost slot")
     for s in spec.slots:
         if s.kind not in C.SUPPORTED_KINDS or s.activation not in C.ACTIVATIONS:
             raise NotImplementedError(f"cost slot {s.name!r} ({s.kind}, "
@@ -269,10 +267,10 @@ def _jacobian(fun, z0):
 
 def _gauss_newton(spec, J_res, val_res, view, glob, coeff):
     """cost, g = J'(w Ar), H = J' diag(w Arr) J over the stacked residual
-    rows; J_res (..., n_res, n), val_res (..., n_res)."""
+    rows; J_res (..., n_res, n), val_res (..., n_res) (n_res may be 0)."""
     cost = torch.zeros(val_res.shape[:-1], dtype=J_res.dtype,
                        device=J_res.device)
-    gAr, gArr = [], []
+    gAr, gArr = [val_res[..., :0]], [val_res[..., :0]]
     off = 0
     for k, slot in enumerate(spec.slots):
         r = val_res[..., off:off + slot.nr]
@@ -322,8 +320,9 @@ def terminal_calc_diff(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x)
     s0 = torch.zeros(x.shape[:-1] + (spec.nu,), dtype=x.dtype, device=x.device)
 
     def fun(dx):
-        return torch.cat(_point_residuals(spec, view, st.integrate(x, dx), s0,
-                                          True), dim=-1)
+        xx = st.integrate(x, dx)
+        return torch.cat([xx[..., :0]] + _point_residuals(spec, view, xx, s0,
+                                                          True), dim=-1)
 
     val0, J = _jacobian(fun, torch.zeros_like(x[..., :st.ndx]))
     return _gauss_newton(spec, J, val0, view, glob, 1.0)

@@ -1,7 +1,7 @@
 """Profile the port's flagship tick or offline solve on one card: where
 the time goes.
 
-    python3 -m eagle_mpc_tpu_torch.profile_tick [carrot|weighted|rail|offline]
+    python3 -m eagle_mpc_tpu_torch.profile_tick [carrot|weighted|rail|offline|closed_loop]
 
 Runs a path of ``chip_smoke.py`` (hexacopter370_flying_arm_3 displacement,
 float32; the carrot path by default). An MPC path (offline reference,
@@ -9,7 +9,10 @@ B=512, from its start time): the depth-30 warm start and one settle chunk
 of 10 chained ticks, then 3 ticks unprofiled (the tick time) and 3 more
 under ``torch.profiler``. ``offline``: the offline solve at B=1 (T=132,
 ``sbfddp.solve``, maxiter 400), once to warm up, once unprofiled and once
-under the profiler. The solver's named functions are wrapped in
+under the profiler. ``closed_loop``: the B=1 closed loop of
+``chip_smoke.py``'s phase 7 (``run_closed_loop``, the while-loop route),
+10 ticks to warm up, 10 unprofiled (the tick time) and 3 from the start
+under the profiler, per tick. The solver's named functions are wrapped in
 ``torch.profiler.record_function`` for the profiled window only. Prints
 the card's name and power limit, the span table (ms per call under the
 profiler, calls per tick or per solver iteration), the three kernels'
@@ -73,6 +76,15 @@ def _offline_spans():
         (riccati_cuda, "backward", "K3 wrapper"),
         (rollout_cuda, "rollout", "K2 wrapper"),
     ]
+
+
+def _closed_loop_spans(ctrl_cls):
+    """(owner, attribute, span name) of each function the closed-loop
+    profile wraps: the offline ones, the update and the plant."""
+    from .sim import AerialSimulator
+
+    return [(ctrl_cls, "update_problem", "update_problem")] + _offline_spans() + [
+        (AerialSimulator, "step", "sim_step")]
 
 
 def _wrap(fn, name):
@@ -161,6 +173,32 @@ def profile_offline(device):
     _profile_and_report(device, _offline_spans(), solve, iters, "iteration")
 
 
+def profile_closed_loop(device, ticks=10):
+    """The closed loop of ``chip_smoke``'s phase 7, step 2 (float32, B=1,
+    the while-loop route): warm-up, timed and profiled; prints the report
+    per tick."""
+    import torch
+
+    import chip_smoke as cs
+    from .mpc import run_closed_loop
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    ctrl, sim, _, _, _, x0, xs_w, us_w = cs.closed_loop_setup(device,
+                                                               torch.float32)
+    run = lambda n: run_closed_loop(ctrl, sim, x0, xs_w, us_w, n_steps=n,
+                                    dt_sim_ms=cs.DT_SIM)
+    run(ticks)
+    sync()
+    t0 = time.perf_counter()
+    run(ticks)
+    sync()
+    tick_ms = (time.perf_counter() - t0) / ticks * 1e3
+    print(f"closed loop f32 B=1 (while route): {tick_ms:.3f} ms per tick "
+          f"unprofiled ({ticks} ticks)", flush=True)
+    _profile_and_report(device, _closed_loop_spans(type(ctrl)),
+                        lambda: run(TICKS), TICKS, "tick")
+
+
 def _profile_and_report(device, spans, run, n, unit):
     """``run()`` under the profiler with ``spans`` wrapped; prints the span
     table per ``unit`` (``n`` of them in the run), each kernel's device
@@ -227,6 +265,8 @@ def main(args):
     for path in args or ["carrot"]:
         if path == "offline":
             profile_offline(torch.device("cuda", 0))
+        elif path == "closed_loop":
+            profile_closed_loop(torch.device("cuda", 0))
         else:
             profile(torch.device("cuda", 0), cs.BATCH, path)
     return 0

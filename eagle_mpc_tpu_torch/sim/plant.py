@@ -1,6 +1,6 @@
 """Aerial plant simulator (counterpart of ``eagle_mpc_tpu.sim.plant``): RK4
 integration of the multibody dynamics, driven by squashed controls, for a
-batch of scenarios."""
+batch of scenarios; ``rollout`` steps it over a control sequence."""
 
 from __future__ import annotations
 
@@ -51,3 +51,11 @@ class AerialSimulator:
         k2 = k(st.integrate(x, k1 * (dt / 2)))
         k3 = k(st.integrate(x, k2 * dt))
         return st.integrate(x, (k0 + 2 * k1 + 2 * k2 + k3) * (dt / 6))
+
+    def rollout(self, x0, us):
+        """``step`` over a control sequence: x0 (..., nx), us (..., N, nu)
+        -> states (..., N+1, nx)."""
+        xs = [x0]
+        for n in range(us.shape[-2]):
+            xs.append(self.step(xs[-1], us[..., n, :]))
+        return torch.stack(xs, dim=-2)

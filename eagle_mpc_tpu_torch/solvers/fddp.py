@@ -491,7 +491,8 @@ def solve_fddp_or_ddp(spec, settings: SolverSettings, params, xs_init, us_init,
                       maxiter, th_stop, reg_init=1e-9, feasible_init=False, *,
                       ddp: bool, box: bool = False,
                       trace_len: Optional[int] = None,
-                      phase_id: int = 0) -> SolveResult:
+                      phase_id: int = 0,
+                      final_cost_fallback: bool = True) -> SolveResult:
     """The reference's FDDP (gap-aware) or DDP solve over a batch: params
     batched, xs_init (B, T+1, nx), us_init (B, T, nu); ``maxiter`` an int
     or (B,) budgets. Iterates while any element is active (it < maxiter,
@@ -500,8 +501,10 @@ def solve_fddp_or_ddp(spec, settings: SolverSettings, params, xs_init, us_init,
 
     With ``settings.record_trace`` an :class:`IterTrace` of ``trace_len``
     rows (default ``maxiter``, which must then be an int) comes back in
-    ``SolveResult.trace``, its rows labelled ``phase_id``. An element that
-    never iterates gets the cost of its candidate without a rollout."""
+    ``SolveResult.trace``, its rows labelled ``phase_id``. With
+    ``final_cost_fallback`` an element that never iterates gets the cost of
+    its candidate without a rollout (``problem.total_cost``); without it,
+    ``inf``."""
     P.check_scope(spec)
     full_precision_matmul()
     s = _init_carry(xs_init, us_init, reg_init, feasible_init)
@@ -520,12 +523,7 @@ def solve_fddp_or_ddp(spec, settings: SolverSettings, params, xs_init, us_init,
             break
         s = _select(active, _while_iteration(spec, settings, params, s, ddp,
                                              th_stop, box, phase_id), s)
-    res = _result(s)
-    if not bool(torch.isfinite(s.cost).all()):
-        res = res._replace(cost=torch.where(
-            torch.isfinite(s.cost), s.cost,
-            P.total_cost(spec, params, s.xs, s.us)))
-    return res
+    return _result(s, spec, params, final_cost_fallback)
 
 
 def solve_fddp(spec, settings, params, xs_init, us_init, maxiter, th_stop,
@@ -616,8 +614,16 @@ def _init_carry(xs, us, reg_init, feasible_init) -> _Carry:
                   done=false, failed=false.clone())
 
 
-def _result(s: _Carry) -> SolveResult:
-    return SolveResult(xs=s.xs, us=s.us, cost=s.cost, iters=s.it,
+def _result(s: _Carry, spec=None, params=None,
+            final_cost_fallback: bool = False) -> SolveResult:
+    """The solve's result; with ``final_cost_fallback`` an element that never
+    iterated (its cost still inf) gets ``problem.total_cost`` of its
+    candidate."""
+    cost = s.cost
+    if final_cost_fallback and not bool(torch.isfinite(cost).all()):
+        cost = torch.where(torch.isfinite(cost), cost,
+                           P.total_cost(spec, params, s.xs, s.us))
+    return SolveResult(xs=s.xs, us=s.us, cost=cost, iters=s.it,
                        feasible=s.feasible, stop=s.stop_val,
                        gap_norm=s.gap_norm, xreg=s.xreg, failed=s.failed,
                        trace=s.trace)
@@ -626,11 +632,13 @@ def _result(s: _Carry) -> SolveResult:
 def solve_fixed(spec, settings: SolverSettings, params, xs, us, depth: int,
                 th_stop: float, reg_init: float = 1e-9, feasible_init=None, *,
                 ddp: bool = False, box: bool = False, maxiter=None,
-                n_alphas: Optional[int] = None) -> SolveResult:
+                n_alphas: Optional[int] = None,
+                final_cost_fallback: bool = True) -> SolveResult:
     """``depth`` iterations with per-element done/maxiter masking (the
     reference package's ``solve_fixed_batched``). ``maxiter``: None (=
     depth) or a (B,) budget. Iterations after every element has stopped are
-    skipped; they would change nothing."""
+    skipped; they would change nothing. ``final_cost_fallback`` as in
+    :func:`solve_fddp_or_ddp`."""
     P.check_scope(spec)
     full_precision_matmul()
     n_alphas = settings.n_alphas if n_alphas is None else n_alphas
@@ -643,7 +651,7 @@ def solve_fixed(spec, settings: SolverSettings, params, xs, us, depth: int,
             break
         s = _select(active, _fixed_iteration(spec, settings, params, s, ddp,
                                              th_stop, n_alphas, box), s)
-    return _result(s)
+    return _result(s, spec, params, final_cost_fallback)
 
 
 def solve_while_fixed_body(spec, settings: SolverSettings, params, xs, us,

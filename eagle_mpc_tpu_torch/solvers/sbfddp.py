@@ -8,9 +8,9 @@ elements that are still infeasible.
 - ``solve``: the offline solve (the reference's SolverSbFDDP::solve), a
   Python loop over the rows of a :class:`HomotopySchedule`, each row a
   while-loop solve (``fddp.solve_fddp_or_ddp``).
-- ``solve_fixed``: one batched solve for the MPC tick and its warm start,
-  each stage ``fddp.solve_fixed``; the polish is skipped when every element
-  is feasible.
+- ``solve_fixed``: one batched fixed-depth solve for the MPC tick and its
+  warm start, each stage ``fddp.solve_fixed``; the polish is skipped when
+  every element is feasible.
 """
 
 from __future__ import annotations
@@ -163,18 +163,20 @@ def solve(spec: P.ProblemSpec, params: P.ProblemParams, xs_init=None,
 def solve_fixed(spec: P.ProblemSpec, params: P.ProblemParams, xs, us,
                 depth: int = 2, feasible: bool = False,
                 settings: Optional[SbFddpSettings] = None,
-                n_alphas: Optional[int] = None, polish: str = "while_fixed",
+                n_alphas: Optional[int] = None, polish: str = "while",
                 polish_maxiter: Optional[int] = None) -> SbFddpResult:
     """Fixed-depth SbFDDP over a batch: ``params`` batched, ``xs``
     (B, T+1, nx), ``us`` (B, T, nu).
 
     ``polish`` runs the DDP polish of the still-infeasible elements as
-    ``while_fixed`` (early-exit loop over the fixed iteration; the tick),
-    ``fixed`` (``depth`` masked iterations with the full alpha ladder; the
-    warm start) or ``none``. ``polish_maxiter`` caps its budget below
-    ``depth``."""
-    if polish not in ("while_fixed", "fixed", "none"):
-        raise ValueError(f"polish must be while_fixed|fixed|none, got {polish!r}")
+    ``while`` (the while-loop DDP solve, ``fddp.solve_fddp_or_ddp``; the
+    default, as in the JAX package), ``while_fixed`` (early-exit loop over
+    the fixed iteration; the bench's tick), ``fixed`` (``depth`` masked
+    iterations with the full alpha ladder; the warm start) or ``none``.
+    ``polish_maxiter`` caps its budget below ``depth``."""
+    if polish not in ("while", "while_fixed", "fixed", "none"):
+        raise ValueError(
+            f"polish must be while|while_fixed|fixed|none, got {polish!r}")
     settings = settings or SbFddpSettings()
     B, device = xs.shape[0], xs.device
     n = settings.n_stages
@@ -191,7 +193,8 @@ def solve_fixed(spec: P.ProblemSpec, params: P.ProblemParams, xs, us,
         res = fddp.solve_fixed(
             spec, settings.solver, _set_homotopy(spec, params, smooths[k]),
             xs, us, depth, th_stops[k], settings.reg_init,
-            feas if k == 0 else None, ddp=False, n_alphas=n_alphas)
+            feas if k == 0 else None, ddp=False, n_alphas=n_alphas,
+            final_cost_fallback=False)
         xs, us, feas = res.xs, res.us, res.feasible
         iters = iters + res.iters
         failed = failed | res.failed
@@ -202,14 +205,19 @@ def solve_fixed(spec: P.ProblemSpec, params: P.ProblemParams, xs, us,
     if polish != "none" and not bool(feas.all()):
         maxiter_p = torch.where(feas, 0, budget)
         th = settings.convergence_stop
-        if polish == "while_fixed":
+        if polish == "while":
+            res_p = fddp.solve_fddp_or_ddp(
+                spec, settings.solver, params_f, xs, us, maxiter_p, th,
+                settings.reg_init, False, ddp=True, final_cost_fallback=False)
+        elif polish == "while_fixed":
             res_p = fddp.solve_while_fixed_body(
                 spec, settings.solver, params_f, xs, us, maxiter_p, th,
                 settings.reg_init, ddp=True, n_alphas=n_alphas)
         else:
             res_p = fddp.solve_fixed(
                 spec, settings.solver, params_f, xs, us, depth, th,
-                settings.reg_init, ddp=True, maxiter=maxiter_p)
+                settings.reg_init, ddp=True, maxiter=maxiter_p,
+                final_cost_fallback=False)
         keep = feas
         xs = torch.where(keep[:, None, None], xs, res_p.xs)
         us = torch.where(keep[:, None, None], us, res_p.us)

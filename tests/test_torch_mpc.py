@@ -6,13 +6,12 @@ import numpy as np
 import pytest
 import torch
 
-from eagle_mpc_tpu.ocp import problem as JP
 from eagle_mpc_tpu_torch import convert
 from eagle_mpc_tpu_torch.ocp import problem as P
 from eagle_mpc_tpu_torch.sim import AerialSimulator
 
-from torch_port_util import (CPU, F64, FIXTURE, controllers, load_port,
-                             rand_states, t)
+from torch_port_util import (CL_FIXTURE, CPU, F64, FIXTURE, controllers,
+                             load_port, rand_states, t)
 
 
 @pytest.fixture(scope="module")
@@ -41,16 +40,20 @@ def test_params_and_spec_convert(ctrls):
 @pytest.mark.parametrize("t_ms", [0.0, 1000.0, 3500.0, 4050.0, 4500.0])
 def test_update_problem_matches_jax(ctrls, t_ms):
     """Node activity and carrot references at stage transitions (wp1 at
-    2000-2030 ms, wp2 at 4030-4060 ms) and past the trajectory end."""
-    jc, tc = ctrls
-    want = jc.update_problem(t_ms, JP.as_device(jc.params0))
+    2000-2030 ms, wp2 at 4030-4060 ms) and past the trajectory end. The JAX
+    values are the fixture's (``up_*`` of
+    tests/fixtures/torch_port_closed_loop.npz): evaluating JAX's update
+    here cost most of these cases' time."""
+    tc = ctrls[1]
+    fx = np.load(CL_FIXTURE)
+    i = fx["up_t"].tolist().index(t_ms)
     got = tc.update_problem(torch.full((2,), t_ms, dtype=F64),
                             P.expand_params(tc.params0, 2))
     for b in range(2):
         np.testing.assert_array_equal(got.node.active[b].numpy(),
-                                      np.asarray(want.node.active))
-        for wr, gr in zip(want.node.refs, got.node.refs):
-            np.testing.assert_allclose(gr[b].numpy(), np.asarray(wr),
+                                      fx["up_active"][i])
+        for k, gr in enumerate(got.node.refs):
+            np.testing.assert_allclose(gr[b].numpy(), fx[f"up_ref{k}"][i],
                                        rtol=0, atol=1e-12)
 
 

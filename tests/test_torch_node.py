@@ -142,14 +142,16 @@ def test_pack_params_matches_descriptor(ctrls):
 @pytest.mark.parametrize("change", ["rk4", "no_slots", "frame_cost",
                                     "contacts", "friction_cone"])
 def test_out_of_scope_spec_raises(ctrls, change):
-    """The kernels take free dynamics, Euler and up to 12 STATE / CONTROL /
+    """The kernels take free dynamics, Euler and 0 to 12 STATE / CONTROL /
     frame slots; any other spec raises instead of running a different path
-    (frame_cost: a frame slot past the 12 the kernels hold)."""
+    (frame_cost: a frame slot past the 12 the kernels hold; no_slots: the
+    slot-less spec is taken, as the JAX package evaluates it, and raises
+    once it also has contacts)."""
     spec = ctrls[1].spec
     grip = C.CostSlot("grip", C.FRAME_TRANSLATION, C.QUAD, 3, 3, frame_id=0)
     bad = {
         "rk4": dict(integrator=P.RK4),
-        "no_slots": dict(slots=()),
+        "no_slots": dict(slots=(), contacts=("gripper",)),
         "frame_cost": dict(slots=spec.slots + (grip,) * (
             _cuda.MAX_SLOTS + 1 - len(spec.slots))),
         "contacts": dict(contacts=("gripper",)),
@@ -159,6 +161,10 @@ def test_out_of_scope_spec_raises(ctrls, change):
     }[change]
     with pytest.raises(NotImplementedError):
         _cuda.make_descriptor(dataclasses.replace(spec, **bad))
+    if change == "no_slots":
+        d = _cuda.make_descriptor(dataclasses.replace(spec, slots=()))
+        assert (d.n_slots, d.n_res, d.node_dim) == (0, 0, 0)
+        assert d.glob_dim == 1 + 2 * spec.nu
     # a frame slot inside the maximum is taken
     if change == "frame_cost":
         _cuda.make_descriptor(dataclasses.replace(

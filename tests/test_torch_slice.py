@@ -67,9 +67,10 @@ def test_tick_matches_jax(setup):
     tc, sim, fx = setup
     x0 = t(fx["x0"])
     base = P.expand_params(tc.params0, 2)._replace(x0=x0)
-    res = tc.solve(tc.update_problem(t(fx["tick_t"]), base),
-                   t(fx["tick_xs_in"]), t(fx["tick_us_in"]), n_alphas=10,
-                   polish="while_fixed", polish_maxiter=1)
+    res = sbfddp.solve_fixed(tc.spec, tc.update_problem(t(fx["tick_t"]), base),
+                             t(fx["tick_xs_in"]), t(fx["tick_us_in"]),
+                             depth=tc.iters, settings=tc.solver_settings(),
+                             n_alphas=10, polish="while_fixed", polish_maxiter=1)
     x_next = sim.step(x0, res.us_squash[:, 0])
     assert fx["tick_iters"].tolist() == [2, 3]   # the polish ran for element 1
     _check(fx, "tick", res, (("x_next", x_next),))
@@ -77,33 +78,44 @@ def test_tick_matches_jax(setup):
 
 def test_port_runs_without_jax():
     """Importing the port, building the flagship controller and running one
-    CPU tick at B=2, and the offline path (the entry point's module,
+    CPU closed-loop tick at B=2 (``run_closed_loop``: the while-loop route
+    of ``MpcAbstract.solve``), the task-activated controller's update, the
+    plant's rollout, ``State``'s constructors, ``utils``, the closed loop's
+    entry point module, and the offline path (the entry point's module,
     ``from_trajectory``, one iteration of each stage of ``sbfddp.solve``
     and of Box-FDDP on iris hover) never imports jax, the JAX package or
     ``tools``."""
     code = """
-import sys, torch
+import sys, numpy as np, torch
 torch.set_num_threads(1)
 from eagle_mpc_tpu_torch.config import load_mpc_params, load_ref, load_trajectory
-from eagle_mpc_tpu_torch.mpc import CarrotMpc
+from eagle_mpc_tpu_torch.mpc import CarrotMpc, TaskActivatedCarrotMpc, run_closed_loop
+from eagle_mpc_tpu_torch.mpc import __main__
 from eagle_mpc_tpu_torch.ocp import problem as P
 from eagle_mpc_tpu_torch.sim import AerialSimulator
 from eagle_mpc_tpu_torch.solvers import fddp
+from eagle_mpc_tpu_torch.utils import log, tools
 R = "hexacopter370_flying_arm_3"
+cpu, f64 = torch.device("cpu"), torch.float64
 traj = load_trajectory(f"{R}/trajectories/displacement.yaml", yaml_dir="missions")
 mp = load_mpc_params(f"{R}/mpc/mpc.yaml", yaml_dir="missions")
 ref, _ = load_ref(R, "displacement", 30, traj=traj)
 ctrl = CarrotMpc(mpc_params=mp, trajectory=traj, state_ref=ref, dt_ref=30,
-                 device=torch.device("cpu"), dtype=torch.float64)
-sim = AerialSimulator.from_platform(mp.model, mp.platform, 2,
-                                    device=torch.device("cpu"), dtype=torch.float64)
-x0 = torch.as_tensor(ref[116], dtype=torch.float64).expand(2, -1)
-params = ctrl.update_problem(torch.full((2,), 3500.0, dtype=torch.float64),
-                             P.expand_params(ctrl.params0, 2)._replace(x0=x0))
-xs, us = fddp.default_init(ctrl.spec, params)
-res = ctrl.solve(params, xs, us)
-x_next = sim.step(x0, res.us_squash[:, 0])
-assert torch.isfinite(x_next).all() and torch.isfinite(res.cost).all()
+                 device=cpu, dtype=f64)
+sim = AerialSimulator.from_platform(mp.model, mp.platform, 2, device=cpu,
+                                    dtype=f64)
+x0 = torch.as_tensor(ref[:2], dtype=f64)
+T = ctrl.spec.T
+out = run_closed_loop(ctrl, sim, x0, torch.as_tensor(ref[:T + 1]).expand(2, -1, -1),
+                      torch.zeros(2, T, ctrl.spec.nu, dtype=f64), n_steps=1,
+                      dt_sim_ms=2.0)
+assert torch.isfinite(out.states).all() and torch.isfinite(out.costs).all()
+task = TaskActivatedCarrotMpc(mpc_params=mp, trajectory=traj, state_ref=ref,
+                              dt_ref=30, device=cpu, dtype=f64)
+task.update_problem(torch.zeros(2, dtype=f64), P.expand_params(task.params0, 2))
+x = ctrl.state.normalize(ctrl.state.rand(np.random.default_rng(0))[None])
+assert sim.rollout(x, out.controls[:1]).shape == (1, 2, ctrl.state.nx)
+log.debug(tools.mission_errors(out.states[0].numpy(), ref[:2], mp.model.nq))
 from eagle_mpc_tpu_torch import trajectory
 from eagle_mpc_tpu_torch.solvers import sbfddp
 hover = load_trajectory("iris/trajectories/hover.yaml", yaml_dir="missions")

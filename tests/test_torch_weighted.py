@@ -231,8 +231,9 @@ def test_tick_matches_jax(ctrls, name):
                                         dtype=F64)
     x0 = t(fx["x0"])
     base_p = P.expand_params(tc.params0, B)._replace(x0=x0)
-    res = tc.solve(tc.update_problem(t(fx["tick_t"]), base_p),
-                   t(fx["tick_xs_in"]), t(fx["tick_us_in"]), n_alphas=10,
-                   polish="while_fixed", polish_maxiter=1)
+    res = sbfddp.solve_fixed(tc.spec, tc.update_problem(t(fx["tick_t"]), base_p),
+                             t(fx["tick_xs_in"]), t(fx["tick_us_in"]),
+                             depth=tc.iters, settings=tc.solver_settings(),
+                             n_alphas=10, polish="while_fixed", polish_maxiter=1)
     x_next = sim.step(x0, res.us_squash[:, 0])
     _check(fx, "tick", res, (("x_next", x_next),))

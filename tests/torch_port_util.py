@@ -12,6 +12,8 @@ from eagle_mpc_tpu_torch import config as port_config
 MISSIONS = os.path.join(os.path.dirname(__file__), "..", "missions")
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "torch_port_flagship.npz")
+CL_FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
+                          "torch_port_closed_loop.npz")
 FLAGSHIP = "hexacopter370_flying_arm_3"
 DT_REF = 30
 CPU = torch.device("cpu")

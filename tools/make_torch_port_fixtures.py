@@ -57,10 +57,43 @@ hover mission, from ``problem.from_trajectory``:
   the mission's (the smoke solve) and two perturbed (sd 0.05, quaternion
   untouched, seed 3).
 
-Compiling the solvers takes a few minutes on a CPU (about 2 minutes per
-controller). Regenerate all four, or the ones named, with
+The closed-loop layer (``torch_port_closed_loop.npz``, ``closed_loop``):
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship weighted rail offline]
+- ``iris_*``: the offline solve of tests/test_mpc.py's ``iris_setup``
+  (iris hover, dt 40 ms, ``sbfddp.solve`` at maxiter 100), and
+  ``run_closed_loop`` of a CarrotMpc (missions/iris/mpc/mpc.yaml) on it for
+  3 ticks at dt_sim 10 ms from the hold-padded warm start, with
+  ``fixed=False`` (``cl_while_*``) and ``fixed=True`` (``cl_fixed_*``);
+- ``pw_*``: ``sbfddp.solve_fixed(polish="while")`` of the flagship tick
+  fixture's rough element (depth 2, convergence_init 1e-3), so the
+  while-loop DDP polish runs;
+- ``task_*``: ``TaskActivatedCarrotMpc.update_problem`` on iris hover (the
+  iris offline solution as its reference) at 4 times around the stage
+  change at 1100 ms;
+- ``rand_x``: ``State.rand`` of the flagship state from seed 0, and
+  ``roll_*``: ``AerialSimulator.rollout`` (flagship, 2 ms) for 5 steps from
+  it;
+- ``flag_*``: the flagship closed loop of chip_smoke.py's phase 7 step 1
+  (CarrotMpc, the dt 30 offline reference, x0 its first state, the warm
+  start its first T+1 states and T controls, dt_sim 2 ms, 20 ticks,
+  ``fixed=False``), and ``flag_eps_*`` the same from x0 + 1e-12 (off the
+  quaternion), to show how far chaining amplifies round-off;
+- ``qn_*``: the node derivatives of the XLA path at the flagship carrot
+  candidates (t = 3500 ms) with every quaternion's norm 1 + 1e-7
+  (element 0) or 1 - 1e-7 (element 1);
+- ``sl_*``: node derivatives and ``total_cost`` of a slot-less spec (iris
+  hover at dt 40 ms without the squash, its slots removed);
+- ``fb_*``: ``fddp.solve_fixed`` on iris hover at dt 60 ms from
+  ``default_init`` with a budget of 0 (the final-cost fallback) and of 1;
+- ``off32_*``: the flagship offline solve (dt 30, maxiter 400) in float32,
+  in a process without x64: iterations, cost and feasibility;
+- ``up_*``: the flagship CarrotMpc's ``update_problem`` at the times of
+  tests/test_torch_mpc.py (activity and each slot's references).
+
+Compiling the solvers takes a few minutes on a CPU (about 2 minutes per
+controller). Regenerate all five, or the ones named, with
+
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship weighted rail offline closed_loop]
 """
 
 import os
@@ -331,6 +364,176 @@ def offline_fixture(missions):
     return out
 
 
+CL_NAMES = ("states", "controls", "solve_iters", "costs", "xs", "us")
+
+OFF32 = """
+import json, os, sys
+sys.path.insert(0, {root!r})
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+from eagle_mpc_tpu.config import specs
+from eagle_mpc_tpu.ocp import problem as P
+from eagle_mpc_tpu.solvers import sbfddp
+traj = specs.load_trajectory({rel!r}, yaml_dir={missions!r})
+spec, params = P.from_trajectory(traj, dt_ms={dt}, use_squash=True,
+                                 integrator="IntegratedActionModelEuler",
+                                 dtype=jnp.float32)
+r = jax.jit(lambda p: sbfddp.solve(spec, p, maxiter=400))(params)
+assert r.xs.dtype == jnp.float32
+print(json.dumps(dict(iters=int(r.iters), cost=float(r.cost),
+                      feasible=bool(r.feasible))))
+"""
+
+
+def closed_loop_fixture(missions, mp, traj, ref, sim):
+    """The closed-loop layer's JAX values (module docstring); ``mp``,
+    ``traj``, ``ref`` and ``sim`` are the flagship's."""
+    import dataclasses
+    import json
+    import subprocess
+
+    import jax
+    import jax.numpy as jnp
+
+    from eagle_mpc_tpu.config import specs
+    from eagle_mpc_tpu.dynamics.state import State
+    from eagle_mpc_tpu.mpc import CarrotMpc, TaskActivatedCarrotMpc, run_closed_loop
+    from eagle_mpc_tpu.ocp import problem as P
+    from eagle_mpc_tpu.sim import AerialSimulator
+    from eagle_mpc_tpu.solvers import fddp, sbfddp
+
+    host = lambda a: np.asarray(a)
+    out = {}
+    euler = "IntegratedActionModelEuler"
+
+    def warm(ctrl, xs, us):
+        T = ctrl.spec.T
+        pad = max(0, T + 1 - xs.shape[0])
+        xs_w = np.vstack([xs, np.tile(xs[-1], (pad, 1))])[:T + 1]
+        us_w = np.vstack([us, np.tile(us[-1], (pad, 1))])[:T]
+        return jnp.asarray(xs_w), jnp.asarray(us_w)
+
+    # (a) iris hover: the offline solve and 3 closed-loop ticks, both routes
+    itraj = specs.load_trajectory("iris/trajectories/hover.yaml",
+                                  yaml_dir=missions)
+    imp = specs.load_mpc_params("iris/mpc/mpc.yaml", yaml_dir=missions)
+    spec, params = P.from_trajectory(itraj, dt_ms=40, use_squash=True,
+                                     integrator=euler)
+    r = jax.jit(lambda p: sbfddp.solve(spec, p, maxiter=100))(params)
+    ixs, ius = host(r.xs), host(r.us)
+    out.update(iris_xs=ixs, iris_us=ius, iris_iters=host(r.iters))
+    ictrl = CarrotMpc(mpc_params=imp, trajectory=itraj, state_ref=ixs,
+                      dt_ref=40)
+    isim = AerialSimulator.from_platform(imp.model, imp.platform, dt_ms=10)
+    xs_w, us_w = warm(ictrl, ixs, ius)
+    for name, fixed in (("while", False), ("fixed", True)):
+        cl = jax.jit(lambda x0, a, b: run_closed_loop(
+            ictrl, isim, x0, a, b, n_steps=3, dt_sim_ms=10.0,
+            fixed=fixed))(jnp.asarray(ixs[0]), xs_w, us_w)
+        out.update({f"cl_{name}_{n}": host(a) for n, a in zip(CL_NAMES, cl)})
+
+    # (b) the while polish from the flagship tick fixture's rough element
+    fx = np.load(os.path.join(FIXTURES, "torch_port_flagship.npz"))
+    ctrl = CarrotMpc(mpc_params=mp, trajectory=traj, state_ref=ref,
+                     dt_ref=DT_REF)
+    p1 = ctrl.update_problem(fx["tick_t"][1], P.as_device(ctrl.params0)._replace(
+        x0=jnp.asarray(fx["x0"][1])))
+    r = jax.jit(lambda p, xs, us: sbfddp.solve_fixed(
+        ctrl.spec, p, xs, us, depth=2, settings=ctrl.solver_settings(),
+        polish="while"))(p1, fx["tick_xs_in"][1], fx["tick_us_in"][1])
+    out.update({f"pw_{n}": host(getattr(r, n)) for n in NAMES})
+
+    # (c) the task-activated carrot around the stage change at 1100 ms
+    tctrl = TaskActivatedCarrotMpc(mpc_params=imp, trajectory=itraj,
+                                   state_ref=ixs, dt_ref=40)
+    times = np.array([0.0, 330.0, 1090.0, 1110.0])
+    K = tctrl._n_mission_slots
+    upd = [tctrl.update_problem(tm, P.as_device(tctrl.params0)) for tm in times]
+    out.update(task_t=times,
+               task_active=np.stack([host(u.node.active) for u in upd]),
+               task_ref=np.stack([host(u.node.refs[K]) for u in upd]))
+
+    # (d), (e) State.rand and the plant's rollout
+    st = State(mp.model.nq, mp.model.nv)
+    x = host(st.rand(np.random.default_rng(0)))
+    u = np.random.default_rng(1).uniform(0.0, 5.0, size=(5, mp.platform.nu))
+    out.update(rand_x=x, roll_u=u,
+               roll_xs=host(jax.jit(sim.rollout)(jnp.asarray(x), u)))
+
+    # (f) the flagship closed loop of chip_smoke.py's phase 7, step 1
+    with np.load(os.path.join(missions, "refs",
+                              f"{ROBOT}__{MISSION}__dt{DT_REF}.npz")) as z:
+        rus = z["us"]
+    xs_w, us_w = warm(ctrl, ref, rus)
+    loop = jax.jit(lambda x0: run_closed_loop(ctrl, sim, x0, xs_w, us_w,
+                                              n_steps=20, dt_sim_ms=2.0))
+    x0 = ref[0].copy()
+    out.update({f"flag_{n}": host(a) for n, a in zip(CL_NAMES, loop(x0))})
+    x0[:3] += 1e-12
+    x0[7:] += 1e-12
+    out.update({f"flag_eps_{n}": host(a) for n, a in zip(CL_NAMES, loop(x0))})
+    out["flag_eps_x0"] = x0
+
+    # node derivatives at |q| = 1 +- 1e-7
+    xs, us = perturbed(ctrl.spec, ctrl.params0.x0, 0)
+    xs[0, :, 3:7] *= 1 + 1e-7
+    xs[1, :, 3:7] *= 1 - 1e-7
+    out.update(calc_diff_fixture(ctrl, np.array([3500.0, 3500.0]), xs[:, 0],
+                                 xs, us, prefix="qn"))
+
+    # the slot-less spec: iris hover, raw controls, slots removed
+    spec, params = P.from_trajectory(itraj, dt_ms=40, use_squash=False,
+                                     integrator=euler)
+    spec = dataclasses.replace(spec, slots=())
+    node, glob = params.node, params.glob
+    params = P.as_device(params._replace(
+        node=node._replace(weight=node.weight[:, :0], active=node.active[:, :0],
+                           refs=()),
+        glob=glob._replace(act_w=(), lb=(), ub=())))
+    rng = np.random.default_rng(4)
+    T, nu = spec.T, spec.nu
+    xs = np.tile(np.asarray(params.x0), (T + 1, 1))
+    xs += rng.normal(size=xs.shape) * 0.03
+    xs[:, 3:7] /= np.linalg.norm(xs[:, 3:7], axis=-1, keepdims=True)
+    us = rng.normal(size=(T, nu)) + 2.0
+    d, term = jax.jit(lambda a, b: P.calc_diff_all(
+        spec, params, a, b, pallas_nodes=False))(xs, us)
+    out.update(sl_xs=xs, sl_us=us,
+               sl_total_cost=host(P.total_cost(spec, params, xs, us)))
+    out.update({f"sl_{n}": host(getattr(d, n)) for n in d._fields})
+    out.update({f"sl_term_{n}": host(a)
+                for n, a in zip(("cost", "Lx", "Lxx"), term)})
+
+    # the final-cost fallback: a budget of 0, and of 1
+    spec, params = P.from_trajectory(itraj, dt_ms=60, use_squash=True,
+                                     integrator=euler)
+    solver = fddp.SolverSettings()
+    xs0, us0 = fddp.default_init(spec, params)
+    for budget in (0, 1):
+        r = jax.jit(lambda p: fddp.solve_fixed(
+            spec, solver, p, xs0, us0, 1, 1e-9, maxiter=budget))(params)
+        out[f"fb_cost{budget}"] = host(r.cost)
+
+    # the flagship carrot's update at tests/test_torch_mpc.py's times
+    times = np.array([0.0, 1000.0, 3500.0, 4050.0, 4500.0])
+    upd = [ctrl.update_problem(tm, P.as_device(ctrl.params0)) for tm in times]
+    out.update(up_t=times,
+               up_active=np.stack([host(u.node.active) for u in upd]))
+    out.update({f"up_ref{k}": np.stack([host(u.node.refs[k]) for u in upd])
+                for k in range(len(ctrl.spec.slots))})
+
+    # the flagship offline solve in float32, without x64
+    code = OFF32.format(root=ROOT, missions=missions, dt=DT_REF,
+                        rel=f"{ROBOT}/trajectories/{MISSION}.yaml")
+    env = dict(os.environ, JAX_ENABLE_X64="0", JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True)
+    off32 = json.loads(res.stdout.strip().splitlines()[-1])
+    out.update({f"off32_{k}": np.asarray(v) for k, v in off32.items()})
+    return out
+
+
 def main(names):
     import jax
 
@@ -356,7 +559,23 @@ def main(names):
         "rail": RailMpc(mpc_params=mp, state_ref=ref, dt_ref=DT_REF),
     }
     os.makedirs(FIXTURES, exist_ok=True)
-    names = names or list(ctrls) + ["offline"]
+    names = names or list(ctrls) + ["offline", "closed_loop"]
+    if "closed_loop" in names:
+        path = os.path.join(FIXTURES, "torch_port_closed_loop.npz")
+        out = closed_loop_fixture(missions, mp, traj, ref, sim)
+        np.savez_compressed(path, **out)
+        print(f"wrote {path}")
+        for n in ("cl_while", "cl_fixed", "flag"):
+            print(f"  {n}: iters {out[n + '_solve_iters']} costs "
+                  f"{out[n + '_costs']}")
+        spread = np.abs(out["flag_states"] - out["flag_eps_states"]).max()
+        cspread = np.abs(out["flag_costs"] / out["flag_eps_costs"] - 1).max()
+        print(f"  flag x0 + 1e-12: iters equal "
+              f"{np.array_equal(out['flag_solve_iters'], out['flag_eps_solve_iters'])}"
+              f", max |states diff| {spread:.3e}, max cost rel diff {cspread:.3e}")
+        print(f"  pw: iters {out['pw_iters']} feasible {out['pw_feasible']}; "
+              f"off32: {out['off32_iters']} iters, cost {out['off32_cost']}, "
+              f"feasible {out['off32_feasible']}")
     if "offline" in names:
         path = os.path.join(FIXTURES, "torch_port_offline.npz")
         out = offline_fixture(missions)
@@ -366,7 +585,7 @@ def main(names):
             print(f"  {n}: iters {out[n + '_iters']} feasible "
                   f"{out[n + '_feasible']} cost {out[n + '_cost']}")
         print(f"  esc: xreg {out['esc_xreg']} failed {out['esc_failed']}")
-    for name in (n for n in names if n != "offline"):
+    for name in (n for n in names if n not in ("offline", "closed_loop")):
         ctrl = ctrls[name]
         out = tick_fixture(ctrl, sim, ref, mp, *TIMES[name], SEEDS[name])
         if name == "flagship":
