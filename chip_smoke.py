@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MPC ticks (Carrot, Weighted, Rail), its
-offline trajectory generation and its closed loop on one NVIDIA GPU.
+offline trajectory generation, its closed loop and its contact missions on
+one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -80,7 +81,53 @@ its seconds):
       and the while-loop DDP polish), 10 ticks from the bench's perturbed
       initial states at 0 ms: costs finite, last tick feasible fraction
       >= 0.99; prints solves/s;
-   4. parity in float64 of K1, K2 and K3 at the state step 1 ends in.
+   4. parity in float64 of K1, K2 and K3 at the state step 1 ends in;
+8. contacts (offline trajectory generation of the two contact missions of
+   hexacopter370_flying_arm_3: monkey_bar at dt 40 ms, T=45, a 3-D gripper
+   contact with Baumgarte gains [10, 5]; eagle_catch at dt 50 ms, T=70, a
+   3-D contact without gains and a friction cone on its force; the launch
+   counts, and the count of plain node dynamics run on the card, set to 0
+   just before step 1's solves and read after step 2: the plain count must
+   be 0):
+   1. float64, B=1, against the JAX package
+      (tests/fixtures/torch_port_contacts.npz): K1 through the kernel at
+      JAX's solution of each mission (and at a rough candidate of
+      eagle_catch, where the friction cone is active, and with monkey_bar's
+      contact made 6-D) against JAX's node derivatives at its contact-active,
+      inactive and cone nodes, to PARITY_RTOL relative to each output's
+      largest entry; then ``sbfddp.solve`` at maxiter 150: feasible and
+      failed as JAX's, and JAX's own invariants (tests/test_contacts.py):
+      |J a + a0| <= 1e-6 at monkey_bar's hang nodes 1, 15 and 29, the
+      gripper within 1e-2 / 6e-2 / 9e-2 m of its start there, the perch
+      within 0.1 m of [1, 0, 0.5], eagle_catch's world normal force >= -1e-6
+      at its middle contact node (the invariants evaluated on host
+      copies). Its iterations, cost and states are printed beside JAX's,
+      with JAX's own solve from x0 + 1e-12: these solves amplify round-off
+      far past any tolerance (monkey_bar: 450 against 272 iterations,
+      states 57 m apart), so no implementation that is not bitwise JAX's
+      can match them;
+   2. float32, each mission at B=1 and at B=64 (x0 perturbed as in phase
+      6): every element finite; at B=1 feasible as the float64 solve; at
+      B=64 feasible on no fewer starts than the fewest of the JAX
+      package's own float32 solves of the same 64 starts and of four
+      round-off copies of them (the fixture's ``*_b64_*``): which start
+      ends feasible is as chaotic as the solves; solve ms, iterations and
+      ms per iteration printed;
+   3. parity in float64 of K1, K2 and K3 at each mission's solution, at
+      its last homotopy stage, tiled to B=8 (element 0 the solution,
+      feasible; element 1 the solution, infeasible; the others perturbed,
+      infeasible), at eagle_catch's with every friction cone's mu 0.1
+      (its barrier then active at the solution), and at monkey_bar's with
+      its contact switched to a 6-D one: contact-active and inactive
+      nodes, the cone slot with its barrier inactive and active, nonzero
+      and zero gains; K2 on the lanes whose states and costs stay within
+      CONTACT_RUNAWAY, which must include perturbed elements and, on the
+      slippery spec, nodes where the cone's barrier is active; on the
+      lanes past it (within the solver's 1e8) round-off grows with the
+      states, and the plain version on the card is printed against the
+      plain version on the host CPU beside the kernel;
+   4. the kernels' and plain versions' times in float32 at B=1 at each
+      mission's solution, with each kernel's bound.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -122,6 +169,15 @@ CL_TICKS_F64 = 20      # phase 7 step 1, held to the JAX fixture
 CL_TICKS_F32 = 100     # step 2
 CL_BATCH = 512         # step 3
 CL_TICKS_BATCH = 10
+CONTACT_FIXTURE = "torch_port_contacts.npz"
+# fixture key -> (mission, dt in ms)
+CONTACT_MISSIONS = {"mb": ("monkey_bar", 40), "ec": ("eagle_catch", 50)}
+CONTACT_MAXITER = 150  # per homotopy stage, as tests/test_contacts.py
+CONTACT_PARITY_B = 8
+CONTACT_PLAIN_REPS = 2  # K2's plain version takes seconds a call at T=70
+CONTACT_NOISE = (0.002, 0.02)  # phase 8 parity: sd on the states, controls
+CONTACT_TIGHT_MU = 0.1  # a slippery eagle_catch: the cone's barrier active
+CONTACT_RUNAWAY = 1e3   # phase 8 parity: a lane past it has run away
 TIMING_REPS = 20
 # published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): HBM3
 # bytes/s and float32 FLOP/s outside the tensor cores (the kernels use none)
@@ -144,14 +200,17 @@ class SmokeFailure(Exception):
 
 def ptxas_summary(log):
     """Registers, stack frame and spills of each kernel entry from the
-    build log (nvcc -Xptxas -v), one line per kernel and type."""
+    build log (nvcc -Xptxas -v), one line per kernel, type and path (K1 and
+    K2 have a free-flight and a contact instantiation)."""
     import re
 
     out, name = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(\w+?)I([fd])E", line)
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?)I([fd])(Lb[01]E)?E",
+                      line)
         if m:
-            name = f"{m[1]}<{'float' if m[2] == 'f' else 'double'}>"
+            path = {"Lb0E": ", free", "Lb1E": ", contact"}.get(m[3], "")
+            name = f"{m[1]}<{'float' if m[2] == 'f' else 'double'}{path}>"
         elif name and ("stack frame" in line or "Used" in line):
             out.append(f"ptxas {name}: {line.split(':')[-1].strip()}")
             if "Used" in line:
@@ -288,13 +347,12 @@ def _err(a, b):
     return d, d / scale
 
 
-def _healthy_lanes(outs):
+def _healthy_lanes(outs, bound=1e8):
     """(B, A) lanes of a rollout that the solver would not call diverged:
-    finite states, controls and costs below its 1e8 bound."""
+    finite states, controls and costs below its 1e8 bound (or ``bound``)."""
     import torch
 
     xs_try, us_try, cs, xn = outs
-    bound = 1e8
     return (torch.isfinite(xs_try).all(-1).all(-1)
             & torch.isfinite(us_try).all(-1).all(-1)
             & torch.isfinite(xn).all(-1)
@@ -328,8 +386,11 @@ def kernel_calls(ctrl, params, xs, us, feasible, reg, box=False):
     STATE slots' 6 x 6 base blocks and of the frame slots' full rows (Lx
     and Lxx), and the Euler step's base block times dD; K2 the feedback
     law, M's Cholesky factor and its two solves per step; K3 the Q terms
-    Fx'VxxFx, Fu'VxxFu and Fu'VxxFx per node. ``box`` runs K2 with the
-    controls clipped to their bounds."""
+    Fx'VxxFx, Fu'VxxFu and Fu'VxxFx per node; on a contact spec with nc
+    constraint rows also K1's and K2's products with the KKT factors (K1
+    per direction: dJm' lam, Jm M^-1 r, M^-1 Jm' dlam and the solve against
+    G's factor; K2 per step: M^-1 Jm', G, its factor and its solve). ``box``
+    runs K2 with the controls clipped to their bounds."""
     import torch
 
     from eagle_mpc_tpu_torch.ocp import costs as C
@@ -361,6 +422,7 @@ def kernel_calls(ctrl, params, xs, us, feasible, reg, box=False):
     T, A = spec.T, alphas.shape[0]
     nv, ndx, nu = spec.model.nv, spec.state.ndx, spec.nu
     nz, n_state = ndx + nu, sum(s.kind == C.STATE for s in spec.slots)
+    nc = spec.nc_rows
     n_frame = sum(s.nr for s in spec.slots if s.kind in C.REF_DIMS)
     return {
         "node_linearization": (
@@ -368,7 +430,8 @@ def kernel_calls(ctrl, params, xs, us, feasible, reg, box=False):
             lambda: node_cuda.calc_diff_running_plain(spec, params, xs, us),
             (xs[:, :T], us) + rows,
             B * T * (2 * 2 * nv * nv * nz + 2 * 6 * 6 * 6 * n_state
-                     + 2 * n_frame * ndx * (ndx + 1) + 2 * 6 * 6 * nz)),
+                     + 2 * n_frame * ndx * (ndx + 1) + 2 * 6 * 6 * nz
+                     + nz * (2 * 3 * nc * nv + 2 * 2 * nc * nc))),
         "riccati_backward": (
             lambda: riccati_cuda.backward(*bargs),
             lambda: riccati_cuda.backward_plain(*bargs), bargs,
@@ -378,7 +441,9 @@ def kernel_calls(ctrl, params, xs, us, feasible, reg, box=False):
             lambda: rollout_cuda.rollout(*rargs),
             lambda: rollout_cuda.rollout_plain(*rargs),
             (xs, us, k, K, fs, params.x0, alphas, keep) + rows,
-            B * A * T * (2 * nu * ndx + nv ** 3 // 3 * 2 + 2 * 2 * nv * nv)),
+            B * A * T * (2 * nu * ndx + nv ** 3 // 3 * 2 + 2 * 2 * nv * nv
+                         + 2 * 2 * nv * nv * nc + 2 * nc * nc * nv
+                         + nc ** 3 // 3 * 2 + 2 * 2 * nc * nc)),
     }
 
 
@@ -929,6 +994,335 @@ def phase_closed_loop(device):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the contact missions (masked KKT dynamics, friction cone)
+# ---------------------------------------------------------------------------
+
+def contact_problem(device, dtype, mission, dt_ms, six=False, mu=None):
+    """(spec, params batched at B = 1) of a contact mission, as the entry
+    point builds them (optionally with its contacts made 6-D, or every
+    friction cone's coefficient set to ``mu``)."""
+    import dataclasses
+
+    from eagle_mpc_tpu_torch.config import load_trajectory
+    from eagle_mpc_tpu_torch.ocp import problem as P
+
+    traj = load_trajectory(f"{ROBOT}/trajectories/{mission}.yaml",
+                           yaml_dir=os.path.join(ROOT, "missions"))
+    if six:
+        traj = P.contact_6d(traj)
+    if mu is not None:
+        traj = dataclasses.replace(traj, stages=tuple(
+            dataclasses.replace(st, costs=tuple(
+                dataclasses.replace(c, mu=mu) if c.n_surf is not None else c
+                for c in st.costs))
+            for st in traj.stages))
+    spec, params = P.from_trajectory(
+        traj, dt_ms=dt_ms, use_squash=True,
+        integrator="IntegratedActionModelEuler", dtype=dtype, device=device)
+    return spec, P.expand_params(params, 1)
+
+
+def _contact_invariants(key, spec, params, res):
+    """tests/test_contacts.py's checks on a float64 solve (phase 8 step 1),
+    evaluated on host copies by the plain version."""
+    import torch
+
+    from eagle_mpc_tpu_torch.dynamics import rbd
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.solvers import sbfddp
+
+    host = lambda a: a.detach().cpu()
+    solved = sbfddp._set_homotopy(spec, P.map_params(host, params),
+                                  float(res.smooth[0]))
+    xs, us = host(res.xs), host(res.us)
+    nq, fid = spec.model.nq, spec.contacts[0].frame_id
+    if key == "mb":
+        hold = P.contact_violation(spec, solved, xs, us)[0]
+        p0 = rbd.frame_placement(spec.model, xs[0, 0, :nq], fid)[0]
+        for t, tol in ((1, 1e-2), (15, 6e-2), (29, 9e-2)):
+            p = rbd.frame_placement(spec.model, xs[0, t, :nq], fid)[0]
+            dp = float((p - p0).abs().max())
+            say(f"contacts monkey_bar node {t}: |J a + a0| "
+                f"{float(hold[t]):.3e}, gripper {dp:.3e} m from its start "
+                f"(tolerance {tol:g})")
+            check(float(hold[t]) <= 1e-6 and dp <= tol,
+                  f"contacts monkey_bar: the contact does not hold at node {t}")
+        perch = float((xs[0, -1, :3] - torch.tensor(
+            [1.0, 0.0, 0.5], dtype=xs.dtype)).abs().max())
+        say(f"contacts monkey_bar: perch {perch:.3e} m from [1, 0, 0.5]")
+        check(perch <= 0.1, "contacts monkey_bar: the perch misses its target")
+    else:
+        ca = solved.node.contact_active[0, :, 0].numpy()
+        nodes = np.where(ca == 1.0)[0]
+        t = int(nodes[len(nodes) // 2])
+        view = P.node_views(solved.node, (0, t))
+        glob = P.map_params(lambda a: a[0], solved.glob)
+        _, _, forces = P._dam(spec, view, glob, xs[0, t], us[0, t])
+        R = rbd.frame_placement(spec.model, xs[0, t, :nq], fid)[1]
+        fz = float((R @ forces[0][:3])[2])
+        say(f"contacts eagle_catch node {t}: world normal force {fz:.6g}")
+        check(fz >= -1e-6, "contacts eagle_catch: negative normal force")
+
+
+def _contact_parity(spec, params, state, label, cone=False):
+    """K1 and K2 against their plain versions in f64 at a solved state
+    (``params`` at the solve's last homotopy stage) tiled to B =
+    CONTACT_PARITY_B: element 0 the solution, feasible; element 1 the
+    solution, infeasible (the gap branch); the others the solution plus
+    seeded noise (CONTACT_NOISE: sd on the states, quaternions
+    renormalized, and on the controls), infeasible. K3, which the contacts
+    do not reach, is printed beside them: at these states cond(Quu) puts
+    two correct Cholesky implementations about 1e-9 apart (ROADMAP Queue
+    3), and phases 4, 6 and 7 gate it. K2 is compared on the lanes whose
+    states and costs stay within CONTACT_RUNAWAY; kernel and plain version
+    must agree on which lanes pass it and the solver's 1e8. The compared
+    lanes must include perturbed elements and run through contact-active
+    and inactive nodes, and with ``cone`` through nodes where the friction
+    cone's barrier is active (K1's Lxu at the lanes' states nonzero). The
+    lanes between the two bounds go to :func:`_runaway_witness`."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.ops import node_cuda
+
+    B = CONTACT_PARITY_B
+    xs, us = (a.expand((B,) + a.shape[1:]).clone() for a in state)
+    g = torch.Generator(device=xs.device).manual_seed(0)
+    noise = lambda a, sd: sd * torch.randn(a[2:].shape, generator=g,
+                                           device=a.device, dtype=a.dtype)
+    xs[2:] += noise(xs, CONTACT_NOISE[0])
+    xs[2:, :, 3:7] /= xs[2:, :, 3:7].norm(dim=-1, keepdim=True)
+    us[2:] += noise(us, CONTACT_NOISE[1])
+    pb = P.map_params(lambda a: a.expand((B,) + a.shape[1:]).contiguous(),
+                      params)
+    pb = pb._replace(x0=xs[:, 0].contiguous())
+    feasible = torch.arange(B, device=xs.device) == 0
+    active = pb.node.contact_active[0, :spec.T]
+    check(bool((active == 1).any()) and bool((active == 0).any()),
+          f"{label}: no contact-active and inactive nodes")
+    calls = kernel_calls(SimpleNamespace(spec=spec), pb, xs, us, feasible,
+                         reg=1e-2)
+    out = {}
+    for name, (kern, plain, _, _) in calls.items():
+        got, want = kern(), plain()
+        if name == "alpha_rollout":
+            for bound in (1e8, CONTACT_RUNAWAY):
+                check(torch.equal(_healthy_lanes(want, bound),
+                                  _healthy_lanes(got, bound)),
+                      f"{label} alpha_rollout: kernel and plain version "
+                      f"disagree on which lanes pass {bound:g}")
+            lanes = _healthy_lanes(want, CONTACT_RUNAWAY)
+            check(bool(lanes[2:].any()), f"{label} alpha_rollout: no "
+                  "perturbed element's lane is compared")
+            _runaway_witness(spec, pb, calls[name][2], got, want,
+                             _healthy_lanes(want) & ~lanes, label)
+            xl = torch.cat([want[0], want[3][:, :, None]], dim=2)[lanes]
+            n = xl.shape[0]
+            pl = P.map_params(lambda a: a[:1].expand((n,) + a.shape[1:])
+                              .contiguous(), pb)
+            lxu = node_cuda.calc_diff_running(
+                spec, pl._replace(x0=xl[:, 0].contiguous()), xl,
+                want[1][lanes]).Lxu.abs().amax(dim=(-2, -1))
+            say(f"{label} alpha_rollout: {n} of {lanes.numel()} lanes "
+                f"within {CONTACT_RUNAWAY:g} compared ({lanes.sum(1).tolist()}"
+                f" per element); the cone's barrier active at "
+                f"{int((lxu > 0).sum())} of their nodes")
+            check(not cone or bool((lxu > 0).any()), f"{label} alpha_rollout:"
+                  " the friction cone's barrier is active on no compared lane")
+            got, want = [g[lanes] for g in got], [w[lanes] for w in want]
+        errs = [_err(w, g) for w, g in zip(want, got)]
+        abs_err, rel_err = max(e[0] for e in errs), max(e[1] for e in errs)
+        gated = name != "riccati_backward"
+        say(f"{label} parity f64 {name} (B={B}, T={spec.T}): max abs "
+            f"{abs_err:.3e}, max rel {rel_err:.3e}"
+            + (f" (gate {PARITY_RTOL:g})" if gated else " (not gated here)"))
+        check(rel_err <= PARITY_RTOL or not gated, f"{label} {name}: kernel "
+              f"differs from its plain version ({rel_err:.3e} > "
+              f"{PARITY_RTOL:g})")
+        if name == "node_linearization":
+            nodes = int((want.Lxu.abs().amax(dim=(-2, -1)) > 0).sum())
+            say(f"{label} node_linearization: the cone's barrier active at "
+                f"{nodes} of {B * spec.T} nodes (Lxu nonzero)")
+            check(not cone or nodes > 0, f"{label} node_linearization: the "
+                  "friction cone's barrier is active at no node")
+        out[name] = {"max_abs_err": abs_err}
+    return out
+
+
+def _runaway_witness(spec, params, ins, got, want, away, label):
+    """On the lanes that run away (past CONTACT_RUNAWAY, within the
+    solver's 1e8), print how far the plain version on the card and on the
+    host CPU (float64, the same inputs) lie apart, beside the kernel's
+    distance from each: round-off grows along such a lane, so two correct
+    implementations part there."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.ops import rollout_cuda
+
+    if not bool(away.any()):
+        return
+    sel = away.any(1).nonzero().flatten()
+    xs, us, k, K, fs, _, alphas, keep = (a[sel].cpu() if a.dim() > 1
+                                         else a.cpu() for a in ins[:8])
+    host = rollout_cuda.rollout_plain(
+        spec, P.map_params(lambda a: a[sel].cpu(), params), xs, us, k, K,
+        fs, alphas, keep)
+    lanes = away[sel].cpu()
+    pick = lambda outs: [o[sel].cpu()[lanes] for o in outs]
+    h, w, g = [o[lanes] for o in host], pick(want), pick(got)
+    dist = lambda a, b: max(_err(x, y)[1] for x, y in zip(a, b))
+    say(f"{label} alpha_rollout: {int(away.sum())} lanes run past "
+        f"{CONTACT_RUNAWAY:g} (largest |entry| {float(w[0].abs().max()):.3e}"
+        f"); on them, plain on the card against plain on the CPU "
+        f"{dist(h, w):.3e} relative, kernel against either "
+        f"{dist(h, g):.3e} / {dist(w, g):.3e} (not gated)")
+
+
+def phase_contacts(device):
+    """The contact missions (module docstring, phase 8). Returns (launches
+    per kernel in steps 1 and 2, {mission: {kernel: its numbers}})."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.ops import node_cuda, riccati_cuda, rollout_cuda
+    from eagle_mpc_tpu_torch.solvers import sbfddp
+    from eagle_mpc_tpu_torch.trajectory import perturbed_x0
+
+    mods = {"node_linearization": node_cuda, "riccati_backward": riccati_cuda,
+            "alpha_rollout": rollout_cuda}
+    f64, f32 = torch.float64, torch.float32
+    fx = np.load(os.path.join(ROOT, "tests", "fixtures", CONTACT_FIXTURE))
+
+    # 1. float64 at B = 1 against the JAX package: K1 at JAX's nodes, then
+    # (the counts set to 0) the solves
+    for key, sol, six in (("mb", "mb", False), ("ec", "ec", False),
+                          ("ecr", "ecr", False), ("m6", "mb", True)):
+        mission, dt_ms = CONTACT_MISSIONS[{"ecr": "ec", "m6": "mb"}.get(key, key)]
+        spec, params = contact_problem(device, f64, mission, dt_ms, six)
+        xs, us = (torch.as_tensor(fx[f"{sol}_{n}"], device=device)[None]
+                  for n in ("xs", "us"))
+        got = node_cuda.calc_diff_running(spec, params, xs, us)
+        nodes = fx[f"{key}_nodes"].tolist()
+        errs = {n: _err(torch.as_tensor(fx[f"{key}_cd_{n}"], device=device),
+                        getattr(got, n)[0, nodes])[1] for n in got._fields}
+        worst = max(errs.values())
+        say(f"contacts {mission}{' 6-D' if six else ''} K1 f64 at nodes "
+            f"{nodes} of {'a rough candidate' if key == 'ecr' else 'its JAX solution'}"
+            f" against JAX's node derivatives: max rel {worst:.3e} (gate "
+            f"{PARITY_RTOL:g}); max |Lxu| {float(got.Lxu[0, nodes].abs().max()):.3e}")
+        check(worst <= PARITY_RTOL, f"contacts {mission} K1 differs from "
+              f"JAX's node derivatives: {errs}")
+    for m in mods.values():
+        m.LAUNCHES = 0
+    P.PLAIN_ON_CARD = 0
+    solved, feasible64, smooth = {}, {}, {}
+    for key, (mission, dt_ms) in CONTACT_MISSIONS.items():
+        spec, params = contact_problem(device, f64, mission, dt_ms)
+        res, sec = _solve_timed(lambda: sbfddp.solve(
+            spec, params, maxiter=CONTACT_MAXITER))
+        diff = lambda a, ref: float(np.abs(a.cpu().numpy() - ref).max())
+        say(f"contacts {mission} f64 B=1 T={spec.T}: {sec:.3f} s, iters "
+            f"{int(res.iters[0])}, cost {float(res.cost[0])!r}, feasible "
+            f"{bool(res.feasible[0])}, failed {bool(res.failed[0])}; JAX: "
+            f"iters {int(fx[key + '_iters'])}, cost "
+            f"{float(fx[key + '_cost'])!r}, max |xs - JAX| "
+            f"{diff(res.xs[0], fx[key + '_xs']):.3e}; JAX from x0 + 1e-12: "
+            f"iters {int(fx[key + '_eps_iters'])}, cost "
+            f"{float(fx[key + '_eps_cost'])!r}, max |xs - JAX| "
+            f"{np.abs(fx[key + '_eps_xs'] - fx[key + '_xs']).max():.3e}")
+        for n in ("feasible", "failed"):
+            check(bool(getattr(res, n)[0]) == bool(fx[f"{key}_{n}"]),
+                  f"contacts {mission} f64: {n} differs from the JAX solve")
+        _contact_invariants(key, spec, params, res)
+        smooth[key] = float(res.smooth[0])
+        solved[key] = (spec, sbfddp._set_homotopy(spec, params, smooth[key]),
+                       (res.xs, res.us))
+        feasible64[key] = bool(res.feasible[0])
+
+    # 2. float32 at B = 1 and B = OFFLINE_BATCH (x0 perturbed)
+    for key, (mission, dt_ms) in CONTACT_MISSIONS.items():
+        spec32, p32 = contact_problem(device, f32, mission, dt_ms)
+        pb = P.expand_params(P.map_params(lambda a: a[0], p32), OFFLINE_BATCH)
+        pb = pb._replace(x0=perturbed_x0(p32.x0[0], OFFLINE_BATCH, 0.05, 0))
+        for B, params in ((1, p32), (OFFLINE_BATCH, pb)):
+            res, sec = _solve_timed(lambda: sbfddp.solve(
+                spec32, params, maxiter=CONTACT_MAXITER))
+            it = int(res.iters.max())
+            finite = all(bool(torch.isfinite(a).all())
+                         for a in (res.xs, res.us, res.cost))
+            n_feas = int(res.feasible.sum())
+            say(f"contacts {mission} f32 B={B}: {sec * 1e3:.1f} ms, iters "
+                f"{res.iters.min().item()}-{it}, {sec * 1e3 / max(it, 1):.2f} "
+                f"ms per iteration, feasible {n_feas} of {B}, failed "
+                f"{int(res.failed.sum())}, cost of element 0 "
+                f"{float(res.cost[0])!r}")
+            check(finite, f"contacts {mission} f32 B={B}: non-finite values")
+            if B == 1:
+                check(n_feas == int(feasible64[key]), f"contacts {mission} "
+                      "f32 B=1: feasibility differs from the f64 solve")
+                continue
+            jax_feas = [int(fx[f"{key}_b64_feasible"].sum())] + [
+                int(c) for c in fx[f"{key}_b64_spread_feasible"].sum(1)]
+            idx = lambda m: np.where(np.asarray(m))[0].tolist()
+            say(f"contacts {mission} f32 B={B}: infeasible starts "
+                f"{idx(~res.feasible.cpu())}, failed {idx(res.failed.cpu())};"
+                f" the JAX package's f32 solve of the same starts: feasible "
+                f"{jax_feas[0]}, infeasible {idx(~fx[key + '_b64_feasible'])},"
+                f" failed {idx(fx[key + '_b64_failed'])}; of their round-off "
+                f"copies: feasible {jax_feas[1:]}")
+            check(n_feas >= min(jax_feas), f"contacts {mission} f32 B={B}: "
+                  f"{n_feas} feasible, JAX {jax_feas}")
+    torch.cuda.synchronize()
+    launches = {n: m.LAUNCHES for n, m in mods.items()}
+    say(f"contacts launches during steps 1 and 2: {json.dumps(launches)}; "
+        f"plain node dynamics on the card: {P.PLAIN_ON_CARD}")
+    for n in mods:
+        check(launches[n] > 0, f"contacts: {n}: no kernel launch")
+    check(P.PLAIN_ON_CARD == 0, f"contacts: the solves ran the plain node "
+          f"dynamics on the card {P.PLAIN_ON_CARD} times")
+
+    # 3. parity in f64: both missions, eagle_catch on a slippery surface
+    # and monkey_bar with a 6-D contact
+    stats = {}
+    for key, (spec, params, state) in solved.items():
+        stats[key] = _contact_parity(spec, params, state,
+                                     f"contacts {CONTACT_MISSIONS[key][0]}")
+    for key, label, kw in (
+            ("ec", f"eagle_catch mu {CONTACT_TIGHT_MU:g}",
+             dict(mu=CONTACT_TIGHT_MU)),
+            ("mb", "monkey_bar 6-D", dict(six=True))):
+        spec, params = contact_problem(device, f64, *CONTACT_MISSIONS[key],
+                                       **kw)
+        check(kw.get("six") is None or spec.contacts[0].dim == 6,
+              "the 6-D variant has no 6-D contact")
+        params = sbfddp._set_homotopy(spec, params, smooth[key])
+        for name, r in _contact_parity(spec, params, solved[key][2],
+                                       f"contacts {label}",
+                                       cone="mu" in kw).items():
+            stats[key][name]["max_abs_err_" + ("cone" if "mu" in kw
+                                               else "6d")] = r["max_abs_err"]
+
+    # 4. times in f32 at B = 1 at each mission's solution
+    for key, (spec, params, state) in solved.items():
+        p32 = P.map_params(lambda a: a.to(f32), params)
+        xs, us = (a.to(f32) for a in state)
+        calls = kernel_calls(SimpleNamespace(spec=spec), p32, xs, us,
+                             torch.tensor([True], device=device), reg=1e-2)
+        for name, (kern, plain, ins, flops) in calls.items():
+            r = stats[key][name]
+            r["bound_ms"], r["bound_by"] = bound_ms(ins, kern(), flops)
+            r["ms"] = _time_ms(kern)
+            r["plain_ms"] = _time_ms(plain, reps=CONTACT_PLAIN_REPS)
+            say(f"contacts time f32 B=1 {CONTACT_MISSIONS[key][0]} "
+                f"T={spec.T} {name}: kernel {r['ms']:.3f} ms, plain "
+                f"{r['plain_ms']:.3f} ms (medians of {TIMING_REPS} and "
+                f"{CONTACT_PLAIN_REPS}), bound {r['bound_ms']:.4f} ms by "
+                f"{r['bound_by']}")
+    return launches, stats
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the bench workload
 # ---------------------------------------------------------------------------
 
@@ -1070,6 +1464,9 @@ def main():
     t_phase = time.time()
     cl_launches, cl_stats = phase_closed_loop(device)
     say(f"phase closed_loop: {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    con_launches, con_stats = phase_contacts(device)
+    say(f"phase contacts: {time.time() - t_phase:.1f} s")
     foreign = sorted(m for m in sys.modules
                      if m in ("jax", "eagle_mpc_tpu", "tools")
                      or m.startswith(("jax.", "eagle_mpc_tpu.", "tools.")))
@@ -1082,7 +1479,8 @@ def main():
          "launches_per_tick": paths["carrot"][1][name],
          "launches_per_path": dict({p: paths[p][0][name] for p in PATHS},
                                    offline=off_launches[name],
-                                   closed_loop=cl_launches[name]),
+                                   closed_loop=cl_launches[name],
+                                   contacts=con_launches[name]),
          "max_abs_err": main_stats[name]["max_abs_err"],
          "ms": main_stats[name]["ms"], "plain_ms": main_stats[name]["plain_ms"],
          "bound_ms": main_stats[name]["bound_ms"],
@@ -1092,6 +1490,8 @@ def main():
          "offline": {k: off_stats[name][k] for k in
                      ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "closed_loop_max_abs_err": cl_stats[name]["max_abs_err"],
+         "contacts": {CONTACT_MISSIONS[key][0]: con_stats[key][name]
+                      for key in CONTACT_MISSIONS},
          **({"offline_box_max_abs_err": box_stats[name]["max_abs_err"],
              "slotless_max_abs_err": box_stats[name]["slotless_max_abs_err"]}
             if name in box_stats else {})}

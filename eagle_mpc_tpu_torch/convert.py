@@ -24,12 +24,14 @@ def params_from_jax(params, device, dtype) -> P.ProblemParams:
     leading batch axes are kept."""
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
     node, glob = params.node, params.glob
-    if getattr(node, "contact_refs", ()):
-        raise NotImplementedError("contact parameters are not ported yet")
+    ca = getattr(node, "contact_active", None)
     return P.ProblemParams(
         x0=t(params.x0),
         node=P.NodeParams(weight=t(node.weight), active=t(node.active),
-                          refs=tuple(t(r) for r in node.refs)),
+                          refs=tuple(t(r) for r in node.refs),
+                          contact_active=None if ca is None else t(ca),
+                          contact_refs=tuple(
+                              t(r) for r in getattr(node, "contact_refs", ()))),
         glob=P.GlobalParams(
             act_w=tuple(t(a) for a in glob.act_w),
             lb=tuple(t(a) for a in glob.lb), ub=tuple(t(a) for a in glob.ub),
@@ -55,9 +57,22 @@ def model_from_jax(model) -> RobotModel:
 
 
 def spec_from_jax(spec) -> P.ProblemSpec:
-    """Reference ``ProblemSpec`` -> this package's."""
+    """Reference ``ProblemSpec`` -> this package's (its cost and contact
+    slots rebuilt field by field)."""
     return P.ProblemSpec(
-        model=model_from_jax(spec.model), nu=spec.nu, tau_f=spec.tau_f,
-        slots=tuple(C.CostSlot(*s) for s in spec.slots),
-        integrator=spec.integrator, T=spec.T, dt=spec.dt,
-        use_squash=spec.use_squash, contacts=tuple(spec.contacts))
+        model=model_from_jax(spec.model), nu=int(spec.nu),
+        tau_f=tuple(tuple(float(v) for v in row) for row in spec.tau_f),
+        slots=tuple(C.CostSlot(
+            name=str(s.name), kind=str(s.kind), activation=str(s.activation),
+            nr=int(s.nr), ref_dim=int(s.ref_dim), frame_id=int(s.frame_id),
+            contact_id=int(s.contact_id),
+            cone_A=None if s.cone_A is None else tuple(
+                tuple(float(v) for v in row) for row in s.cone_A))
+            for s in spec.slots),
+        integrator=str(spec.integrator), T=int(spec.T), dt=float(spec.dt),
+        use_squash=bool(spec.use_squash),
+        contacts=tuple(P.ContactSlot(
+            name=str(c.name), frame_id=int(c.frame_id), dim=int(c.dim),
+            ref_dim=int(c.ref_dim),
+            gains=tuple(float(g) for g in c.gains))
+            for c in spec.contacts))

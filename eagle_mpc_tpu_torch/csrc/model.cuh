@@ -1,7 +1,9 @@
 // Device-side model of one node: the free-flyer state manifold, the
-// multibody dynamics (tree kinematics, RNEA, CRBA, Cholesky), the squash,
+// multibody dynamics (tree kinematics, RNEA, CRBA, Cholesky), the contact
+// rows and the masked KKT solve of the constrained dynamics, the squash,
 // rotor allocation, the symplectic-Euler step, and the cost rows of the
-// STATE, CONTROL and operational-frame slots with their activations.
+// STATE, CONTROL, operational-frame and friction-cone slots with their
+// activations.
 //
 // Every function is a template on the scalar S (float or double) and on
 // the value type V (S, or Dual<S> for forward-mode tangents). Mirrors
@@ -39,6 +41,9 @@
 #define EM_MAX_NZ (EM_MAX_NDX + EM_MAX_NU)
 #define EM_MAX_SLOTS 12
 #define EM_MAX_NR EM_MAX_NDX
+#define EM_MAX_CON 2    // contacts
+#define EM_MAX_NC 6     // constraint rows of all contacts (one 6-D or two 3-D)
+#define EM_CONE_ROWS 5  // rows of a friction-cone slot
 
 #define EM_EPS2 1e-8
 
@@ -48,16 +53,19 @@ enum {
   EM_KIND_FRAME_PLACEMENT = 2,
   EM_KIND_FRAME_TRANSLATION = 3,
   EM_KIND_FRAME_ROTATION = 4,
-  EM_KIND_FRAME_VELOCITY = 5
+  EM_KIND_FRAME_VELOCITY = 5,
+  EM_KIND_FRICTION_CONE = 6
 };
 
 enum { EM_ACT_QUAD = 0, EM_ACT_WQUAD = 1, EM_ACT_QBARRIER = 2, EM_ACT_WQBARRIER = 3 };
 enum { EM_REVOLUTE = 0, EM_PRISMATIC = 1 };
 
 // Gauss-Newton structure of a slot: CONTROL residuals are s - ref, the
-// identity on s; every other kind (STATE and the frame slots) depends on x
-// alone.
-__host__ __device__ __forceinline__ bool slot_on_x(int kind) { return kind != EM_KIND_CONTROL; }
+// identity on s; STATE and the frame slots depend on x alone; a friction
+// cone depends on x and s through the contact forces (neither).
+__host__ __device__ __forceinline__ bool slot_on_x(int kind) {
+  return kind != EM_KIND_CONTROL && kind != EM_KIND_FRICTION_CONE;
+}
 
 struct ModelDesc {
   double joint_p[EM_MAX_NJ][3];     // joint placement translation in the parent
@@ -69,6 +77,10 @@ struct ModelDesc {
   double dt;                        // node duration (s)
   double slot_fp[EM_MAX_SLOTS][3];  // frame slots: the frame's translation in its body
   double slot_fR[EM_MAX_SLOTS][9];  // frame slots: the frame's rotation in its body (row-major)
+  double slot_cone[EM_MAX_SLOTS][3 * EM_CONE_ROWS];  // cone slots: A (5 x 3, row-major)
+  double con_fp[EM_MAX_CON][3];     // contacts: the frame's translation in its body
+  double con_fR[EM_MAX_CON][9];     // contacts: the frame's rotation in its body
+  double con_gain[EM_MAX_CON][2];   // contacts: Baumgarte gains (kp, kd)
   int parent[EM_MAX_NJ];
   int joint_type[EM_MAX_NJ];
   int nj, nq, nv, nu, n_rot, use_squash;
@@ -82,7 +94,25 @@ struct ModelDesc {
   int slot_ref_off[EM_MAX_SLOTS];   // offset of the slot's reference in a node row
   int slot_glob_off[EM_MAX_SLOTS];  // offset of the slot's act_w in a global row
   int slot_body[EM_MAX_SLOTS];      // frame slots: the body the frame is fixed to
+  int slot_contact[EM_MAX_SLOTS];   // cone slots: the contact of its force, or -1
+  int n_con;                        // contacts
+  int nc;                           // their constraint rows
+  int con_dim[EM_MAX_CON];          // 3 or 6
+  int con_body[EM_MAX_CON];         // the body the contact frame is fixed to
+  int con_row[EM_MAX_CON];          // first constraint row of each contact
+  int con_ref_off[EM_MAX_CON];      // offset of its reference in a node row
+  int con_act_off;                  // offset of the contacts' activity in a node row
 };
+
+// whether a spec takes the kernels' contact path: it has contacts or a
+// friction cone (a cone without a contact has zero rows). The kernels are
+// instantiated for either path, so a free-flight spec runs code with no
+// contact branch in it.
+__host__ __device__ inline bool contact_path(const ModelDesc& d) {
+  bool cone = false;
+  for (int k = 0; k < d.n_slots; ++k) cone = cone || d.slot_kind[k] == EM_KIND_FRICTION_CONE;
+  return d.n_con > 0 || cone;
+}
 
 // ---------------------------------------------------------------------------
 // small vector helpers
@@ -545,6 +575,134 @@ __device__ __noinline__ void chol_solve(const V* L, int n, int stride, V* b) {
   }
 }
 
+// in place: the lower Cholesky factor of the n x n matrix A (stride
+// `stride`); a non-PD pivot gives NaN, which spreads to every later entry
+template <class S>
+__device__ __noinline__ void chol_factor(S* A, int n, int stride) {
+  for (int j = 0; j < n; ++j) {
+    S dj = A[stride * j + j];
+    for (int k = 0; k < j; ++k) dj = dj - A[stride * j + k] * A[stride * j + k];
+    dj = vsqrt(dj);
+    A[stride * j + j] = dj;
+    for (int i = j + 1; i < n; ++i) {
+      S s = A[stride * i + j];
+      for (int k = 0; k < j; ++k) s = s - A[stride * i + k] * A[stride * j + k];
+      A[stride * i + j] = s / dj;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// contacts
+// ---------------------------------------------------------------------------
+
+// The rows of contact c at x, as problem._contact_rows computes them, from
+// x alone: the LOCAL frame Jacobian J (dim x nv, row stride EM_MAX_NV;
+// column i is the frame's velocity at v = e_i), a0 (dim) and the frame's
+// world rotation Rf (9). a0 is the drift (the frame's LOCAL spatial
+// acceleration at zero joint acceleration, without gravity: RNEA's forward
+// pass with a_0 = 0, a_i = X_i a_parent + v_i x S_i qd_i) plus Baumgarte:
+// 3-D, the linear rows + w x v + kp Rf^T (p - ref) + kd v; 6-D, all rows +
+// kp log6(Rref^T (p - pref), Rref^T Rf) + kd (v, w). np: node parameter row.
+template <class S, class V>
+__device__ __noinline__ void contact_rows(const ModelDesc& d, int c, const V* x, const S* np,
+                                          V* J, V* a0, V* Rf) {
+  const int body = d.con_body[c], dim = d.con_dim[c], nv = d.nv, nq = d.nq;
+  V p[EM_MAX_BODIES][3], R[EM_MAX_BODIES][9];
+  V pw[EM_MAX_BODIES][3], Rw[EM_MAX_BODIES][9];
+  V vel[EM_MAX_BODIES][6], acc[EM_MAX_BODIES][6];
+  for (int i = 0; i < 3; ++i) pw[0][i] = x[i];
+  quat_to_rot<S, V>(x + 3, Rw[0]);
+  for (int i = 0; i < 6; ++i) {
+    vel[0][i] = x[nq + i];
+    acc[0][i] = V(S(0));
+  }
+  for (int j = 0; j + 1 <= body; ++j) {
+    const int b = j + 1, par = d.parent[j];
+    joint_placement<S, V>(d, j, x[7 + j], p[b], R[b]);
+    V r[3];
+    mv3(Rw[par], p[b], r);
+    for (int i = 0; i < 3; ++i) pw[b][i] = pw[par][i] + r[i];
+    for (int rr = 0; rr < 3; ++rr)
+      for (int cc = 0; cc < 3; ++cc)
+        Rw[b][3 * rr + cc] = Rw[par][3 * rr] * R[b][cc] + Rw[par][3 * rr + 1] * R[b][3 + cc]
+                             + Rw[par][3 * rr + 2] * R[b][6 + cc];
+    S Sj[6];
+    joint_subspace<S>(d, j, Sj);
+    V vc[6], ac[6], Svd[6], mc[6];
+    motion_to_child(p[b], R[b], vel[par], vc);
+    for (int i = 0; i < 6; ++i) vel[b][i] = vc[i] + Sj[i] * x[nq + 6 + j];
+    for (int i = 0; i < 6; ++i) Svd[i] = Sj[i] * x[nq + 6 + j];
+    motion_to_child(p[b], R[b], acc[par], ac);
+    motion_cross(vel[b], Svd, mc);
+    for (int i = 0; i < 6; ++i) acc[b][i] = ac[i] + mc[i];
+  }
+  V fp[3], fR[9], vf[6], drift[6], pf[3];
+  for (int i = 0; i < 3; ++i) fp[i] = V(S(d.con_fp[c][i]));
+  for (int i = 0; i < 9; ++i) fR[i] = V(S(d.con_fR[c][i]));
+  motion_to_child(fp, fR, vel[body], vf);
+  motion_to_child(fp, fR, acc[body], drift);
+  mv3(Rw[body], fp, pf);
+  for (int i = 0; i < 3; ++i) pf[i] = pw[body][i] + pf[i];
+  for (int rr = 0; rr < 3; ++rr)
+    for (int cc = 0; cc < 3; ++cc)
+      Rf[3 * rr + cc] = Rw[body][3 * rr] * fR[cc] + Rw[body][3 * rr + 1] * fR[3 + cc]
+                        + Rw[body][3 * rr + 2] * fR[6 + cc];
+  // the Jacobian, a column per unit velocity (vel and acc reused as scratch)
+  for (int i = 0; i < nv; ++i) {
+    for (int r = 0; r < 6; ++r) vel[0][r] = V(S(i == r ? 1 : 0));
+    for (int j = 0; j + 1 <= body; ++j) {
+      const int b = j + 1;
+      S Sj[6];
+      joint_subspace<S>(d, j, Sj);
+      motion_to_child(p[b], R[b], vel[d.parent[j]], vel[b]);
+      if (i == 6 + j)
+        for (int r = 0; r < 6; ++r) vel[b][r] = vel[b][r] + Sj[r];
+    }
+    motion_to_child(fp, fR, vel[body], acc[0]);
+    for (int r = 0; r < dim; ++r) J[EM_MAX_NV * r + i] = acc[0][r];
+  }
+  const S kp = S(d.con_gain[c][0]), kd = S(d.con_gain[c][1]);
+  const S* ref = np + d.con_ref_off[c];
+  if (dim == 3) {
+    V wv[3], e[3], le[3];
+    cross3(vf + 3, vf, wv);
+    for (int i = 0; i < 3; ++i) e[i] = pf[i] - ref[i];
+    mtv3(Rf, e, le);
+    for (int i = 0; i < 3; ++i) a0[i] = drift[i] + wv[i] + kp * le[i] + kd * vf[i];
+  } else {
+    S Rref[9];
+    quat_to_rot<S, S>(ref + 3, Rref);
+    V Rrel[9], q[4], dp[3], t[3], err[6];
+    for (int rr = 0; rr < 3; ++rr)
+      for (int cc = 0; cc < 3; ++cc)
+        Rrel[3 * rr + cc] = Rref[rr] * Rf[cc] + Rref[3 + rr] * Rf[3 + cc] + Rref[6 + rr] * Rf[6 + cc];
+    rot_to_quat<S, V>(Rrel, q);
+    for (int i = 0; i < 3; ++i) dp[i] = pf[i] - ref[i];
+    for (int i = 0; i < 3; ++i) t[i] = Rref[i] * dp[0] + Rref[3 + i] * dp[1] + Rref[6 + i] * dp[2];
+    log6<S, V>(t, q, err);
+    for (int i = 0; i < 6; ++i) a0[i] = drift[i] + kp * err[i] + kd * vf[i];
+  }
+}
+
+// r = A fw, A the matrix of friction-cone slot k, fw a world-frame force
+template <class S, class V>
+__device__ __forceinline__ void cone_apply(const ModelDesc& d, int k, const V* fw, V* r) {
+  for (int i = 0; i < EM_CONE_ROWS; ++i)
+    r[i] = S(d.slot_cone[k][3 * i]) * fw[0] + S(d.slot_cone[k][3 * i + 1]) * fw[1]
+           + S(d.slot_cone[k][3 * i + 2]) * fw[2];
+}
+
+// rows of friction-cone slot k: A (Rf f), f the first three multipliers of
+// its contact (lam: that contact's rows), Rf its frame's world rotation
+template <class S, class V>
+__device__ __forceinline__ void cone_rows(const ModelDesc& d, int k, const V* Rf, const V* lam,
+                                          V* r) {
+  V fw[3];
+  mv3(Rf, lam, fw);
+  cone_apply<S, V>(d, k, fw, r);
+}
+
 // ---------------------------------------------------------------------------
 // the node: squash -> allocation -> free dynamics -> symplectic Euler
 // ---------------------------------------------------------------------------
@@ -691,7 +849,8 @@ __device__ __noinline__ void frame_residual(const ModelDesc& d, int k, const V* 
 
 // residual rows of slot k at (x, s); np: node parameter row. A frame slot
 // computes the kinematics it needs from x itself, so a thread may take it
-// before the node's own tree pass has run.
+// before the node's own tree pass has run. Not for a friction cone, whose
+// rows need the contact forces (cone_rows).
 template <class S, class V>
 __device__ __noinline__ void slot_residual(const ModelDesc& d, int k, const V* x, const V* s,
                               const S* np, V* r) {
@@ -766,17 +925,32 @@ __device__ __noinline__ S slot_cost(const ModelDesc& d, int k, const S* x, const
   return np[k] * np[d.n_slots + k] * activation<S>(d, k, r, gp);
 }
 
+// the same for friction-cone slot k, from the contact forces lam and the
+// contact frames' world rotations Rf (zero rows without a contact)
+template <class S>
+__device__ __noinline__ S cone_cost(const ModelDesc& d, int k, const S* lam, const S (*Rf)[9],
+                                    const S* np, const S* gp, S* r) {
+  const int c = d.slot_contact[k];
+  if (c < 0)
+    for (int i = 0; i < EM_CONE_ROWS; ++i) r[i] = S(0);
+  else
+    cone_rows<S, S>(d, k, Rf[c], lam + d.con_row[c], r);
+  return np[k] * np[d.n_slots + k] * activation<S>(d, k, r, gp);
+}
+
 
 // ---------------------------------------------------------------------------
 // the cooperative node step
 // ---------------------------------------------------------------------------
 //
 // coop_dyn_next is the node step of the plain version (problem.node_calc:
-// squash, CRBA + Cholesky forward dynamics, symplectic Euler, the running
-// cost) split over a group of G threads of one warp, with its working set
-// in shared memory (CoopNode). rollout.cu runs it per alpha lane (G = 8);
-// node.cu runs it for the primal of a node (G = 32). Thread l of a group
-// is l in [0, G); every thread of the warp passes the same barriers.
+// squash, CRBA + Cholesky forward dynamics, the masked KKT solve of a
+// contact spec, symplectic Euler, the running cost) split over a group of
+// G threads of one warp, with its working set in shared memory (CoopNode,
+// and CoopContact on the contact path CON only: a free-flight spec
+// allocates none, and its instantiation has no contact code). rollout.cu runs it per alpha lane
+// (G = 8); node.cu runs it for the primal of a node (G = 32). Thread l of a
+// group is l in [0, G); every thread of the warp passes the same barriers.
 
 #define EM_BASE_NDX 6   // tangent dimension of the free-flyer base
 #define EM_COST_ROWS 8  // threads of a group that take slot costs (after the first)
@@ -802,6 +976,63 @@ struct CoopNode {
   S inc[EM_MAX_NDX];       // the Euler increment
 };
 
+// the constrained dynamics' working set: G = Jm M^-1 Jm^T + diag(1 - act),
+// lam = -G^-1 (Jm a_free + act a0), a = a_free + M^-1 Jm^T lam
+template <class S>
+struct CoopContact {
+  S J[EM_MAX_NC][EM_MAX_NV];    // the masked rows Jm = act J
+  S MJ[EM_MAX_NC][EM_MAX_NV];   // M^-1 Jm^T, a row per constraint row
+  S G[EM_MAX_NC * EM_MAX_NC];   // G, then its Cholesky factor (stride EM_MAX_NC)
+  S a0[EM_MAX_NC];
+  S act[EM_MAX_NC];             // each row's activity
+  S lam[EM_MAX_NC];             // the multipliers (the LOCAL contact forces)
+  S Rf[EM_MAX_CON][9];          // each contact frame's world rotation
+  S free[EM_MAX_NV];            // the unconstrained acceleration
+};
+
+// the rows of the contacts given to thread l of G (those of the last
+// threads, which the body forces leave idle), masked by their activity
+template <class S, int G>
+__device__ __forceinline__ void coop_contact_rows(const ModelDesc& d, int l, const S* x,
+                                                  const S* np, CoopContact<S>& C) {
+  for (int c = G - 1 - l; c >= 0 && c < d.n_con; c += G) {
+    const int r0 = d.con_row[c], dim = d.con_dim[c];
+    contact_rows<S, S>(d, c, x, np, C.J[r0], C.a0 + r0, C.Rf[c]);
+    const S a = np[d.con_act_off + c];
+    for (int r = r0; r < r0 + dim; ++r) {
+      C.act[r] = a;
+      for (int i = 0; i < d.nv; ++i) C.J[r][i] = a * C.J[r][i];
+    }
+  }
+}
+
+// one thread, after a_free (in C.free) and C.MJ: the Schur complement and
+// its factor, the multipliers and the constrained acceleration into rhs
+template <class S>
+__device__ __noinline__ void contact_solve(const ModelDesc& d, CoopNode<S>& W,
+                                           CoopContact<S>& C) {
+  const int nc = d.nc, nv = d.nv;
+  for (int i = 0; i < nc; ++i)
+    for (int k = 0; k <= i; ++k) {
+      S s = C.J[i][0] * C.MJ[k][0];
+      for (int m = 1; m < nv; ++m) s = s + C.J[i][m] * C.MJ[k][m];
+      C.G[EM_MAX_NC * i + k] = i == k ? s + (S(1) - C.act[i]) : s;
+    }
+  chol_factor(C.G, nc, EM_MAX_NC);
+  for (int i = 0; i < nc; ++i) {
+    S s = C.J[i][0] * C.free[0];
+    for (int m = 1; m < nv; ++m) s = s + C.J[i][m] * C.free[m];
+    C.lam[i] = s + C.act[i] * C.a0[i];
+  }
+  chol_solve(C.G, nc, EM_MAX_NC, C.lam);
+  for (int i = 0; i < nc; ++i) C.lam[i] = -C.lam[i];
+  for (int m = 0; m < nv; ++m) {
+    S s = C.free[m];
+    for (int i = 0; i < nc; ++i) s = s + C.MJ[i][m] * C.lam[i];
+    W.rhs[m] = s;
+  }
+}
+
 // body velocities and bias accelerations down the tree (placements known)
 template <class S>
 __device__ __noinline__ void coop_tree_down(const ModelDesc& d, CoopNode<S>& W) {
@@ -826,13 +1057,16 @@ __device__ __noinline__ void coop_solve_and_step(const ModelDesc& d, CoopNode<S>
 }
 
 // the cooperative node step: (xt, usq) -> xc, leaving the acceleration in
-// rhs and the Cholesky factor of M in M. Given a node parameter row np,
+// rhs and the Cholesky factor of M in M (and, with contacts, the rows, the
+// multipliers and G's factor in C). np: the node parameter row (a contact
+// spec reads its contacts' activity and references there). Given c_out,
 // also the running cost at (xt, u) into *c_out: a slot per thread on the
-// threads that the chain down the tree leaves idle, summed in slot order.
-template <class S, int G>
+// threads that the chain down the tree leaves idle, summed in slot order;
+// a friction cone by the first thread once the forces are known.
+template <class S, int G, bool CON>
 __device__ __forceinline__ void coop_dyn_next(const ModelDesc& d, int l, CoopNode<S>& W,
-                                              const S* np = nullptr, const S* gp = nullptr,
-                                              S* c_out = nullptr) {
+                                              CoopContact<S>* C, const S* np = nullptr,
+                                              const S* gp = nullptr, S* c_out = nullptr) {
   const int nv = d.nv, nj = d.nj;
   for (int r = l; r < nv; r += G) W.rhs[r] = alloc_row<S, S>(d, r, W.usq);
   for (int j = l; j < nj; j += G)
@@ -840,12 +1074,14 @@ __device__ __forceinline__ void coop_dyn_next(const ModelDesc& d, int l, CoopNod
   __syncwarp();
   if (l == 0)
     coop_tree_down<S>(d, W);
-  else if (np && l <= EM_COST_ROWS)
+  else if (c_out && l <= EM_COST_ROWS)
     for (int k = l - 1; k < d.n_slots; k += min(G - 1, EM_COST_ROWS))
-      W.ck[k] = slot_cost<S>(d, k, W.xt, W.u, np, gp, W.res[l - 1]);
+      if (!CON || d.slot_kind[k] != EM_KIND_FRICTION_CONE)
+        W.ck[k] = slot_cost<S>(d, k, W.xt, W.u, np, gp, W.res[l - 1]);
   __syncwarp();
   for (int b = l; b <= nj; b += G) body_force<S, S>(d, b, W.acc[b], W.k.vel[b], W.force[b]);
   for (int e = l; e < 36 * (nj + 1); e += G) W.Ic[e / 36][e % 36] = S(d.inertia[e / 36][e % 36]);
+  if constexpr (CON) coop_contact_rows<S, G>(d, l, W.xt, np, *C);
   __syncwarp();
   if (l == 0) coop_tree_up<S>(d, W);
   // CRBA: the composite inertia of each body into its parent's, X^T Ic X
@@ -906,12 +1142,32 @@ __device__ __forceinline__ void coop_dyn_next(const ModelDesc& d, int l, CoopNod
     if (i == c) W.M[EM_MAX_NV * i + i] = W.tmp[i];
   }
   __syncwarp();
-  if (l == 0) {
-    coop_solve_and_step<S>(d, W);
-    if (np) {
-      S total = S(0);
-      for (int k = 0; k < d.n_slots; ++k) total = total + W.ck[k];
-      *c_out = S(d.dt) * total;
+  if constexpr (CON) {
+    // a_free on the first thread, M^-1 Jm^T a row per other thread, then
+    // the KKT solve and the step on the first
+    if (l == 0) {
+      for (int i = 0; i < nv; ++i) C->free[i] = W.rhs[i];
+      chol_solve(W.M, nv, EM_MAX_NV, C->free);
     }
+    for (int r = l - 1; r >= 0 && r < d.nc; r += G - 1) {
+      for (int i = 0; i < nv; ++i) C->MJ[r][i] = C->J[r][i];
+      chol_solve(W.M, nv, EM_MAX_NV, C->MJ[r]);
+    }
+    __syncwarp();
+    if (l == 0) {
+      contact_solve<S>(d, W, *C);
+      euler_next<S, S>(d, W.xt, W.rhs, W.xc, W.inc);
+      if (c_out)
+        for (int k = 0; k < d.n_slots; ++k)
+          if (d.slot_kind[k] == EM_KIND_FRICTION_CONE)
+            W.ck[k] = cone_cost<S>(d, k, C->lam, C->Rf, np, gp, W.tmp);
+    }
+  } else if (l == 0) {
+    coop_solve_and_step<S>(d, W);
+  }
+  if (l == 0 && c_out) {
+    S total = S(0);
+    for (int k = 0; k < d.n_slots; ++k) total = total + W.ck[k];
+    *c_out = S(d.dt) * total;
   }
 }

@@ -42,8 +42,19 @@
 //    body and of its residual in dual numbers (model.cuh frame_residual).
 // 4. Gauss-Newton by slot structure (slot_on_x): Lx and Lxx from the x-only
 //    slots, a STATE slot through its base block; Lu and the diagonal Luu
-//    from the CONTROL slots, whose Jacobian is the identity on s; Lxu is
-//    exactly zero. The activations go a residual row per lane.
+//    from the CONTROL slots, whose Jacobian is the identity on s; Lx, Lu,
+//    Lxx, Lxu and Luu from the friction-cone slots' full rows (Lxu is
+//    exactly zero without one). The activations go a residual row per lane.
+// 6. A contact spec: the warp's primal also runs the masked KKT solve
+//    (model.cuh coop_dyn_next). Its tangents follow the reference's IFT
+//    rule of the KKT system (eagle_mpc_tpu/dynamics/rbd.py, the contact
+//    jvp): for direction j, r = dtau + dJm^T lam - d RNEA|a, dlam =
+//    -G^-1 (dJm a + Jm M^-1 r + act da0), da = M^-1 (r + Jm^T dlam), with
+//    the primal's factors of M and G; dJ and da0 are one dual evaluation of
+//    the contact rows along x^ (+) t e_j (zero for a control direction),
+//    and the cone rows' column is A (dRf f + Rf df). The linearization
+//    point is x^ as above: a, lam and the cone's Rf there come from a_free
+//    at x^ (the gravity shift) and the contact rows at x^ (contact_hat).
 // 5. Every output leaves as contiguous runs: consecutive lanes write
 //    consecutive entries (a row of Fx / Fu at a time).
 //
@@ -85,6 +96,11 @@ __host__ __device__ __forceinline__ int slot_jac_cols(const ModelDesc& d, int k)
 // offsets (in scalars) of one warp's shared arrays, after the K1_NODES
 // CoopNode working sets of the primal
 struct K1Layout {
+  int C;      // the contact path: the CoopContact working set
+  int Jc;     // [cone rows][nz] the friction-cone slots' Jacobians
+  int ah;     // [nv] a contact spec: the acceleration at x^
+  int lamh;   // [nc] the multipliers at x^
+  int Rfh;    // [n_con][9] the contact frames' world rotations at x^
   int DA;     // [nz][nv] da / dz_j
   int Ez;     // [6][6] base block of d/dz (x (+) z (+) D0) (-) xnext0
   int ED;     // [6][6] base block of d/dD (x (+) D) (-) xnext0 at D0 (the
@@ -98,6 +114,7 @@ struct K1Layout {
   int wAA;    // [n_res] w * A_rr
   int total;
   int n_tasks;   // dual columns of the x-only slots
+  int n_cone;    // rows of the friction-cone slots
 };
 
 __host__ __device__ inline K1Layout k1_layout(const ModelDesc& d) {
@@ -105,12 +122,21 @@ __host__ __device__ inline K1Layout k1_layout(const ModelDesc& d) {
   K1Layout o;
   int rows = 0;
   o.n_tasks = 0;
-  for (int k = 0; k < d.n_slots; ++k)
+  o.n_cone = 0;
+  for (int k = 0; k < d.n_slots; ++k) {
     if (slot_on_x(d.slot_kind[k])) {
       rows += slot_jac_rows(d, k);
       o.n_tasks += slot_jac_cols(d, k);
     }
+    if (d.slot_kind[k] == EM_KIND_FRICTION_CONE) o.n_cone += EM_CONE_ROWS;
+  }
+  const bool con = contact_path(d);
   int at = 0;
+  o.C = at;   at += con ? (int)(sizeof(CoopContact<double>) / sizeof(double)) : 0;
+  o.Jc = at;  at += o.n_cone * nz;
+  o.ah = at;  at += con ? nv : 0;
+  o.lamh = at; at += con ? d.nc : 0;
+  o.Rfh = at; at += con ? 9 * d.n_con : 0;
   o.DA = at;  at += nz * nv;
   o.Ez = at;  at += EM_BASE_NDX * EM_BASE_NDX;
   o.ED = at;  at += EM_BASE_NDX * EM_BASE_NDX;
@@ -386,7 +412,117 @@ __device__ __noinline__ void slot_column(const ModelDesc& d, const S* x, int k, 
     for (int q = 0; q < d.slot_nr[k]; ++q) vals[q] = r[q].v;
 }
 
+// a contact spec at x^ = x (+) 0 (the quaternion normalized): a_free
+// shifts by the base-frame gravity alone, a0 and Rf come from the contact
+// rows at x^ (J does not depend on the base's attitude), and with G's
+// factor from x: lam^, a^ and the Euler increment D^ there. One thread.
 template <class S>
+__device__ __noinline__ void contact_hat(const ModelDesc& d, const CoopContact<S>& C,
+                                         const S* np, const S* x, const S* xh, S* ah,
+                                         S* lamh, S* Rfh, S* Dh) {
+  const int nv = d.nv, nc = d.nc;
+  S gw[3] = {S(0), S(0), S(d.gravity)}, g[3], gh[3];
+  quat_rotate_inv<S, S>(x + 3, gw, g);
+  quat_rotate_inv<S, S>(xh + 3, gw, gh);
+  S fh[EM_MAX_NV], J[EM_MAX_NC * EM_MAX_NV], a0[EM_MAX_NC];
+  for (int i = 0; i < nv; ++i) fh[i] = C.free[i];
+  for (int i = 0; i < 3; ++i) fh[i] = fh[i] + (g[i] - gh[i]);
+  for (int c = 0; c < d.n_con; ++c)
+    contact_rows<S, S>(d, c, xh, np, J, a0 + d.con_row[c], Rfh + 9 * c);
+  for (int i = 0; i < nc; ++i) {
+    S s = C.J[i][0] * fh[0];
+    for (int m = 1; m < nv; ++m) s = s + C.J[i][m] * fh[m];
+    lamh[i] = s + C.act[i] * a0[i];
+  }
+  chol_solve(C.G, nc, EM_MAX_NC, lamh);
+  for (int i = 0; i < nc; ++i) lamh[i] = -lamh[i];
+  const S dt = S(d.dt);
+  for (int m = 0; m < nv; ++m) {
+    S s = fh[m];
+    for (int i = 0; i < nc; ++i) s = s + C.MJ[i][m] * lamh[i];
+    ah[m] = s;
+    Dh[m] = (xh[d.nq + m] + s * dt) * dt;
+    Dh[nv + m] = s * dt;
+  }
+}
+
+// the contact part of da/dz_j (the IFT rule in the header): on entry da
+// holds -d RNEA|a (state direction) or dtau/ds (control direction); on
+// exit da/dz_j. Also column j of the cone slots' Jacobians into Jc
+// (row stride nz). The dual evaluation runs along x (+) t e_j from the raw
+// x, as the plain version's: its value is x^, and off |q| = 1 its position
+// tangent is not the one from x^.
+template <class S>
+__device__ __noinline__ void contact_tangent(const ModelDesc& d, const CoopNode<S>& W,
+                                             const CoopContact<S>& C, const S* np,
+                                             const S* ah, const S* lamh, const S* Rfh, int j,
+                                             S* da, S* Jc, int nz) {
+  typedef Dual<S> D;
+  const int nv = d.nv, nc = d.nc, ndx = 2 * nv, nx = d.nq + nv;
+  S dJa[EM_MAX_NC], da0[EM_MAX_NC], dRf[EM_MAX_CON][9];
+  for (int i = 0; i < nc; ++i) dJa[i] = da0[i] = S(0);
+  for (int c = 0; c < d.n_con; ++c)
+    for (int i = 0; i < 9; ++i) dRf[c][i] = S(0);
+  if (j < ndx) {
+    D xd[EM_MAX_NX], z[EM_MAX_NDX], y[EM_MAX_NX];
+    for (int i = 0; i < nx; ++i) xd[i] = D(W.xt[i]);
+    for (int i = 0; i < ndx; ++i) z[i] = D(S(0), S(i == j ? 1 : 0));
+    integrate<S, D>(d, xd, z, y);
+    for (int c = 0; c < d.n_con; ++c) {
+      D J[EM_MAX_NC * EM_MAX_NV], a0[EM_MAX_NC], Rf[9];
+      contact_rows<S, D>(d, c, y, np, J, a0, Rf);
+      const int r0 = d.con_row[c];
+      const S act = np[d.con_act_off + c];
+      for (int r = 0; r < d.con_dim[c]; ++r) {
+        S s = S(0);
+        for (int m = 0; m < nv; ++m) {
+          const S dJ = act * J[EM_MAX_NV * r + m].d;
+          da[m] = da[m] + dJ * lamh[r0 + r];
+          s = s + dJ * ah[m];
+        }
+        dJa[r0 + r] = s;
+        da0[r0 + r] = a0[r].d;
+      }
+      for (int i = 0; i < 9; ++i) dRf[c][i] = Rf[i].d;
+    }
+  }
+  chol_solve(W.M, nv, EM_MAX_NV, da);
+  S dlam[EM_MAX_NC];
+  for (int i = 0; i < nc; ++i) {
+    S s = dJa[i];
+    for (int m = 0; m < nv; ++m) s = s + C.J[i][m] * da[m];
+    dlam[i] = s + C.act[i] * da0[i];
+  }
+  chol_solve(C.G, nc, EM_MAX_NC, dlam);
+  for (int i = 0; i < nc; ++i) dlam[i] = -dlam[i];
+  for (int m = 0; m < nv; ++m) {
+    S s = da[m];
+    for (int i = 0; i < nc; ++i) s = s + C.MJ[i][m] * dlam[i];
+    da[m] = s;
+  }
+  int row = 0;
+  for (int k = 0; k < d.n_slots; ++k) {
+    if (d.slot_kind[k] != EM_KIND_FRICTION_CONE) continue;
+    const int c = d.slot_contact[k];
+    S col[EM_CONE_ROWS];
+    if (c < 0) {
+      for (int i = 0; i < EM_CONE_ROWS; ++i) col[i] = S(0);
+    } else {
+      // d (Rf f) = dRf f + Rf df, then A
+      const S* f = lamh + d.con_row[c];
+      const S* df = dlam + d.con_row[c];
+      S a[3], b[3], t[3];
+      mv3(dRf[c], f, a);
+      mv3(Rfh + 9 * c, df, b);
+      for (int i = 0; i < 3; ++i) t[i] = a[i] + b[i];
+      cone_apply<S, S>(d, k, t, col);
+    }
+    for (int i = 0; i < EM_CONE_ROWS; ++i) Jc[(row + i) * nz + j] = col[i];
+    row += EM_CONE_ROWS;
+  }
+}
+
+template <class S, bool CON>
 __global__ void __launch_bounds__(32 * K1_NODES, K1_MIN_BLOCKS)
 node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
             const S* __restrict__ x, const S* __restrict__ s,
@@ -414,6 +550,11 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
   S* act = sm + lay.act;
   S* wA = sm + lay.wA;
   S* wAA = sm + lay.wAA;
+  CoopContact<S>* C = reinterpret_cast<CoopContact<S>*>(sm + lay.C);
+  S* Jc = sm + lay.Jc;
+  S* ah = sm + lay.ah;
+  S* lamh = sm + lay.lamh;
+  S* Rfh = sm + lay.Rfh;
 
   const size_t nn = (size_t)n;
   const S* np = node_par + nn * d.node_dim;
@@ -425,13 +566,29 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
   }
   __syncwarp();
 
-  // the primal, once per node, by the whole warp, then RNEA(x, a): the
-  // body accelerations and subtree forces the tangents read
-  coop_dyn_next<S, 32>(d, lane, W);
+  // the primal, once per node, by the whole warp, then RNEA(x, a) (a
+  // contact spec: RNEA(x^, a^)): the body accelerations and subtree forces
+  // the tangents read
+  coop_dyn_next<S, 32, CON>(d, lane, W, C, np);
   __syncwarp();
   if (lane == 0) {
-    rnea_forward<S, S>(d, W.xt, W.rhs, W.k, W.acc);
     hat_point<S>(d, W, xh, Dh);
+    if constexpr (CON) {
+      contact_hat<S>(d, *C, np, W.xt, xh, ah, lamh, Rfh, Dh);
+      rnea_forward<S, S>(d, xh, ah, W.k, W.acc);
+      // the cone rows' values, at x^ as every slot's (the plain version
+      // evaluates the rows at x (+) 0)
+      for (int k = 0, row = 0; k < K; row += d.slot_nr[k], ++k)
+        if (d.slot_kind[k] == EM_KIND_FRICTION_CONE) {
+          const int c = d.slot_contact[k];
+          if (c < 0)
+            for (int i = 0; i < EM_CONE_ROWS; ++i) val[row + i] = S(0);
+          else
+            cone_rows<S, S>(d, k, Rfh + 9 * c, lamh + d.con_row[c], val + row);
+        }
+    } else {
+      rnea_forward<S, S>(d, W.xt, W.rhs, W.k, W.acc);
+    }
   }
   __syncwarp();
   for (int b = lane; b <= d.nj; b += 32) body_force<S, S>(d, b, W.acc[b], W.k.vel[b], W.force[b]);
@@ -447,7 +604,10 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
       rnea_tangent<S>(d, W, xh + 3, j, daj);
     else
       control_tangent<S>(d, W, gp, j - ndx, daj);
-    chol_solve(W.M, nv, EM_MAX_NV, daj);
+    if constexpr (CON)
+      contact_tangent<S>(d, W, *C, np, ah, lamh, Rfh, j, daj, Jc, nz);
+    else
+      chol_solve(W.M, nv, EM_MAX_NV, daj);
   }
   // dual columns, one pass with a column per lane: ED, the base block of
   // d/dD (x^ (+) D) (-) xnext0 at D^, and the x-only slots' Jacobians (at
@@ -473,7 +633,7 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
                    j == 0 ? val + row : nullptr);
   }
   for (int k = 0, row = 0; k < K; row += d.slot_nr[k], ++k)
-    if (!slot_on_x(d.slot_kind[k])) {
+    if (d.slot_kind[k] == EM_KIND_CONTROL) {
       const S* ref = np + d.slot_ref_off[k];
       for (int i = lane; i < d.slot_nr[k]; i += 32) val[row + i] = W.u[i] - ref[i];
     }
@@ -533,19 +693,36 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
     cost[nn] = c;
   }
   for (int i = lane; i < nx; i += 32) xnext[nn * nx + i] = W.xc[i];
-  for (int e = lane; e < ndx * nu; e += 32) Lxu[nn * ndx * nu + e] = S(0);
+  // Lxu from the cone rows alone (zero without them)
+  for (int e = lane; e < ndx * nu; e += 32) {
+    S h = S(0);
+    if constexpr (CON) {
+      const int i = e / nu, c = ndx + e % nu;
+      for (int k = 0, row = 0, crow = 0; k < K; row += d.slot_nr[k], ++k)
+        if (d.slot_kind[k] == EM_KIND_FRICTION_CONE)
+          for (int r = 0; r < EM_CONE_ROWS; ++r, ++crow)
+            h = h + Jc[crow * nz + i] * (wAA[row + r] * Jc[crow * nz + c]);
+    }
+    Lxu[nn * ndx * nu + e] = h;
+  }
   // Lx (e < ndx) and Lxx from the x-only slots' rows. A STATE slot's
   // Jacobian is blockdiag(A, I) with A its base block (the other entries
-  // are exact zeros, whose terms are skipped): only A takes products.
+  // are exact zeros, whose terms are skipped): only A takes products. Then
+  // the cone rows' state columns.
   for (int e = lane; e < ndx + ndx * ndx; e += 32) {
     const bool grad = e < ndx;
     const int i = grad ? e : (e - ndx) / ndx;
     const int c = grad ? 0 : (e - ndx) % ndx;
     S h = S(0);
-    int row = 0, xrow = 0;
+    int row = 0, xrow = 0, crow = 0;
     for (int k = 0; k < K; ++k) {
       const int nr = d.slot_nr[k];
-      if (slot_on_x(d.slot_kind[k])) {
+      if (CON && d.slot_kind[k] == EM_KIND_FRICTION_CONE) {
+        for (int r = 0; r < EM_CONE_ROWS; ++r, ++crow) {
+          const S* Jr = Jc + crow * nz;
+          h = grad ? h + Jr[i] * wA[row + r] : h + Jr[i] * (wAA[row + r] * Jr[c]);
+        }
+      } else if (slot_on_x(d.slot_kind[k])) {
         if (slot_block_identity(d, k) && (i >= EM_BASE_NDX || (!grad && c >= EM_BASE_NDX))) {
           if (grad)
             h = h + wA[row + i];
@@ -566,18 +743,21 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
     else
       Lxx[nn * ndx * ndx + e - ndx] = h;
   }
-  // Lu (e < nu) and Luu from the CONTROL slots (identity Jacobians)
+  // Lu (e < nu) and Luu from the CONTROL slots (identity Jacobians) and
+  // the cone rows' control columns
   for (int e = lane; e < nu + nu * nu; e += 32) {
     const bool grad = e < nu;
     const int i = grad ? e : (e - nu) / nu;
     const int c = grad ? i : (e - nu) % nu;
     S h = S(0);
-    if (i == c) {
-      int row = 0;
-      for (int k = 0; k < K; ++k) {
-        if (!slot_on_x(d.slot_kind[k])) h = h + (grad ? wA : wAA)[row + i];
-        row += d.slot_nr[k];
-      }
+    for (int k = 0, row = 0, crow = 0; k < K; row += d.slot_nr[k], ++k) {
+      if (d.slot_kind[k] == EM_KIND_CONTROL && i == c)
+        h = h + (grad ? wA : wAA)[row + i];
+      if (CON && d.slot_kind[k] == EM_KIND_FRICTION_CONE)
+        for (int r = 0; r < EM_CONE_ROWS; ++r, ++crow) {
+          const S* Jr = Jc + crow * nz + ndx;
+          h = grad ? h + Jr[i] * wA[row + r] : h + Jr[i] * (wAA[row + r] * Jr[c]);
+        }
     }
     if (grad)
       Lu[nn * nu + i] = h;
@@ -592,14 +772,14 @@ static int launch_node(const void* desc, const ModelDesc* host_desc, int N, int 
                        S* Fx, S* Fu, S* Lx, S* Lu, S* Lxx, S* Lxu, S* Luu,
                        void* stream) {
   const size_t smem = k1_smem_bytes<S>(k1_layout(*host_desc));
+  const auto kernel = contact_path(*host_desc) ? &node_kernel<S, true> : &node_kernel<S, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        node_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   if (N > 0)
-    node_kernel<S><<<(N + K1_NODES - 1) / K1_NODES, 32 * K1_NODES, smem,
-                     (cudaStream_t)stream>>>(
+    kernel<<<(N + K1_NODES - 1) / K1_NODES, 32 * K1_NODES, smem, (cudaStream_t)stream>>>(
         (const ModelDesc*)desc, N, T, x, s, node_par, glob_par, cost, xnext,
         Fx, Fu, Lx, Lu, Lxx, Lxu, Luu);
   return (int)cudaGetLastError();

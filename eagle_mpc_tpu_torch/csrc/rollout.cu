@@ -37,6 +37,12 @@
 //   thread computes the kinematics of the frame's chain from x_try itself
 //   (model.cuh frame_residual), so it reads nothing the first thread is
 //   still writing. The group's working set lives in shared memory.
+// - A contact spec adds the contact rows (on the group's last threads,
+//   beside the body forces), M^-1 Jm^T a row per thread, and one barrier
+//   before the KKT solve on the first thread; a friction-cone slot reads
+//   the forces, so the first thread, which owns them, takes it after the
+//   solve. Each group's CoopContact is allocated for a contact spec only:
+//   a free-flight spec pays neither its shared memory nor its barrier.
 // - xs_try and us_try leave per node as contiguous runs written by the
 //   group; cs is staged for the whole horizon and leaves as one run per
 //   lane.
@@ -114,7 +120,7 @@ __device__ __noinline__ void ro_gap_and_error(const ModelDesc& d, CoopNode<S>& G
   state_diff<S, S>(d, xs_t, G.xt, G.dx);
 }
 
-template <class S>
+template <class S, bool CON>
 __global__ void __launch_bounds__(RO_MAX_THREADS)
 rollout_kernel(const ModelDesc* __restrict__ desc, int B, int A, int T, int box,
                const S* __restrict__ xs, const S* __restrict__ us,
@@ -134,7 +140,8 @@ rollout_kernel(const ModelDesc* __restrict__ desc, int B, int A, int T, int box,
 
   extern __shared__ unsigned char smem_raw[];
   CoopNode<S>* groups = reinterpret_cast<CoopNode<S>*>(smem_raw);
-  S* op = reinterpret_cast<S*>(groups + ngroups);   // [2][op_len]
+  CoopContact<S>* cons = reinterpret_cast<CoopContact<S>*>(groups + ngroups);
+  S* op = reinterpret_cast<S*>(cons + (CON ? ngroups : 0));   // [2][op_len]
   S* gp = op + 2 * op_len;                           // [glob_dim]
   S* cst = gp + d.glob_dim;                          // [ngroups][T]
   CoopNode<S>& G = groups[g];
@@ -184,7 +191,7 @@ rollout_kernel(const ModelDesc* __restrict__ desc, int B, int A, int T, int box,
       for (int i = l; i < nx; i += RO_G) xs_try[lt * nx + i] = G.xt[i];
       for (int i = l; i < nu; i += RO_G) us_try[lt * nu + i] = G.u[i];
     }
-    coop_dyn_next<S, RO_G>(d, l, G, np_t, gp, cst + g * T + t);
+    coop_dyn_next<S, RO_G, CON>(d, l, G, cons + g, np_t, gp, cst + g * T + t);
     __syncthreads();
   }
   if (real) {
@@ -203,16 +210,18 @@ static int launch_rollout(const void* desc, const ModelDesc* hd, int B, int A, i
   const int threads = ((A * RO_G + 31) / 32) * 32;
   if (A < 1 || threads > RO_MAX_THREADS) return (int)cudaErrorInvalidValue;
   const int ngroups = threads / RO_G;
-  const size_t smem = ngroups * sizeof(CoopNode<S>)
+  const bool con = contact_path(*hd);
+  const size_t smem = ngroups * (sizeof(CoopNode<S>) + (con ? sizeof(CoopContact<S>) : 0))
       + sizeof(S) * ((size_t)2 * ro_op_len(hd->nq + hd->nv, 2 * hd->nv, hd->nu, hd->node_dim)
                      + hd->glob_dim + (size_t)ngroups * T);
+  const auto kernel = con ? &rollout_kernel<S, true> : &rollout_kernel<S, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        rollout_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   if (B > 0 && T > 0)
-    rollout_kernel<S><<<B, threads, smem, (cudaStream_t)stream>>>(
+    kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
         (const ModelDesc*)desc, B, A, T, box, xs, us, k, K, fs, x0, alphas, keep,
         node_par, glob_par, xs_try, us_try, cs, xn_last);
   return (int)cudaGetLastError();

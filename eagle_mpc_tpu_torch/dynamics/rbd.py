@@ -1,8 +1,7 @@
 """Free-flyer rigid-body dynamics: RNEA, CRBA and forward dynamics.
 
-PyTorch counterpart of the free-dynamics part of
-``eagle_mpc_tpu.dynamics.rbd`` and its frame kinematics (contacts come
-later).
+PyTorch counterpart of ``eagle_mpc_tpu.dynamics.rbd``: free and
+contact-constrained dynamics, frame kinematics and the energies.
 The kinematic tree is the port's ``RobotModel`` (``dynamics.model``); its
 constants are turned into tensors once per (model, device, dtype).
 Every function takes (..., nq) / (..., nv) tensors with any leading batch
@@ -11,7 +10,13 @@ shape; the per-joint loops run in Python over the static tree.
 Forward dynamics is mass-matrix based (CRBA + Cholesky), as in the
 reference, so forward-mode derivatives (``torch.func``) go through the
 factorization; the derivative is the same as the reference's implicit-
-function-theorem rule, ``da = M^-1 (dtau - d rnea|_a)``.
+function-theorem rule, ``da = M^-1 (dtau - d rnea|_a)``. The contact
+dynamics go through both factorizations (M's and the Schur complement's)
+the same way, which gives the reference's IFT rule for the KKT system.
+Where the reference nests forward mode (the frame drift as a jvp along
+qdot, linearized again by the node derivatives), the port computes the
+inner derivative in closed form, so torch's single forward-mode level is
+enough.
 """
 
 from __future__ import annotations
@@ -227,3 +232,80 @@ def frame_velocity_from(model: RobotModel, frame_id: int, vel):
 def frame_velocity(model: RobotModel, q, v, frame_id: int):
     """Spatial velocity of a frame, expressed in the frame (LOCAL)."""
     return frame_velocity_from(model, frame_id, body_velocities(model, q, v))
+
+
+# ---------------------------------------------------------------------------
+# Contact dynamics (KKT-constrained forward dynamics)
+# ---------------------------------------------------------------------------
+
+def frame_jacobian_local(model: RobotModel, q, frame_id: int):
+    """LOCAL-frame Jacobian J (..., 6, nv): v_frame = J v. The frame
+    velocity is linear in v, so column i is the velocity at v = e_i, all
+    nv of them in one batched evaluation."""
+    nv = model.nv
+    eye = torch.eye(nv, dtype=q.dtype, device=q.device)
+    qq = q.unsqueeze(-2).expand(q.shape[:-1] + (nv, q.shape[-1]))
+    cols = frame_velocity(model, qq, eye.expand(q.shape[:-1] + (nv, nv)),
+                          frame_id)
+    return cols.transpose(-1, -2)
+
+
+def frame_accel_drift(model: RobotModel, q, v, frame_id: int):
+    """Spatial acceleration of a frame at zero joint acceleration (the
+    J-dot v drift), expressed in the frame (LOCAL): the time derivative of
+    the frame's local velocity as q moves along v with v held. In closed
+    form, the forward pass of RNEA without gravity at zero acceleration:
+    a_0 = 0, a_i = X_i a_parent + v_i x (S_i qd_i), moved to the frame."""
+    mt = model_tensors(model, q.device, q.dtype)
+    Xp, Xr, S, vel = _tree_kinematics(model, mt, q, v)
+    acc: List = [torch.zeros_like(v[..., :6])]
+    for j in range(model.nj):
+        b = j + 1
+        acc.append(spatial.motion_to_child(Xp[b], Xr[b], acc[model.parent[j]])
+                   + spatial.motion_cross(vel[b], S[b] * v[..., 6 + j:7 + j]))
+    fp, fR = frame_tensors(model, frame_id, q.device, q.dtype)
+    return spatial.motion_to_child(fp, fR, acc[model.frames[frame_id].body])
+
+
+def contact_fwd_dynamics(model: RobotModel, q, v, tau, J_rows, a0_rows,
+                         active, damping: float = 0.0):
+    """Constrained forward dynamics with per-row activity masks: solves
+    M a + b = tau + Jm' lam, Jm a + active a0 = 0 with Jm = active J. The
+    masked Schur complement G = Jm M^-1 Jm' + diag(1 - active) + damping I
+    gives lam = 0 on inactive rows, so an all-inactive node is free
+    dynamics exactly. J_rows (..., nc, nv), a0_rows and active (..., nc).
+    Returns (a, lam); NaN where M or G is not positive definite."""
+    chol = smallmat.CholFactor(crba(model, q))
+    free_acc = chol.solve(tau - bias_force(model, q, v))
+    Jm = active.unsqueeze(-1) * J_rows
+    MinvJt = chol.solve_mat(Jm.transpose(-1, -2))          # (..., nv, nc)
+    nc = J_rows.shape[-2]
+    eye = torch.eye(nc, dtype=q.dtype, device=q.device)
+    G = (Jm @ MinvJt + torch.diag_embed(1.0 - active) + damping * eye)
+    rhs = lie.matvec(Jm, free_acc) + active * a0_rows
+    lam = -smallmat.solve_psd(G, rhs)
+    return free_acc + lie.matvec(MinvJt, lam), lam
+
+
+# ---------------------------------------------------------------------------
+# Energies (diagnostics)
+# ---------------------------------------------------------------------------
+
+def kinetic_energy(model: RobotModel, q, v):
+    """0.5 v' M(q) v."""
+    return 0.5 * torch.sum(v * lie.matvec(crba(model, q), v), dim=-1)
+
+
+def potential_energy(model: RobotModel, q):
+    """Sum over bodies of m g z_com (world frame)."""
+    mt = model_tensors(model, q.device, q.dtype)
+    pw, Rw = body_world_placements(model, q)
+    e = torch.zeros(q.shape[:-1], dtype=q.dtype, device=q.device)
+    for b in range(model.nj + 1):
+        I6 = mt.inertia[b]
+        m = I6[0, 0]
+        # I6[3:, :3] = m hat(com): its skew components
+        mc = torch.stack([I6[5, 1], I6[3, 2], I6[4, 0]])
+        com = mc / m if float(m) > 0 else torch.zeros_like(mc)
+        e = e + m * model.gravity * (pw[b] + lie.matvec(Rw[b], com))[..., 2]
+    return e

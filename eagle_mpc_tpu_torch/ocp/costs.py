@@ -1,6 +1,7 @@
 """Cost slots, activations and the STATE, CONTROL and operational-frame
-residuals (counterpart of ``eagle_mpc_tpu.ocp.costs``; the friction-cone
-residual comes with contacts).
+residuals, and the friction cone's matrix (counterpart of
+``eagle_mpc_tpu.ocp.costs``; the cone's residual needs the contact forces
+and is evaluated in ``problem``).
 
 Cost = weight * a(r(x, u)) with Gauss-Newton derivatives
 L = w * (R' Ar, R' diag(Arr) R), as in Crocoddyl.
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..dynamics import lie, rbd
@@ -25,7 +27,7 @@ FRICTION_CONE = "friction_cone"
 
 #: kinds this package evaluates
 SUPPORTED_KINDS = (STATE, CONTROL, FRAME_PLACEMENT, FRAME_TRANSLATION,
-                   FRAME_ROTATION, FRAME_VELOCITY)
+                   FRAME_ROTATION, FRAME_VELOCITY, FRICTION_CONE)
 
 #: reference sizes of the frame kinds
 REF_DIMS = {
@@ -57,6 +59,25 @@ class CostSlot(NamedTuple):
     frame_id: int = -1
     contact_id: int = -1
     cone_A: Optional[Tuple[Tuple[float, ...], ...]] = None
+
+
+def friction_cone_matrix(n_surf, mu: float) -> np.ndarray:
+    """Rows A (5, 3) of the 4-facet outer linearized friction cone and the
+    normal-force row, A f >= 0 inside the cone (Crocoddyl's
+    ``FrictionCone(n_surf, mu, 4, false)``, which the reference hardcodes)."""
+    n = np.asarray(n_surf, dtype=np.float64)
+    n = n / np.linalg.norm(n)
+    t1 = np.cross(n, [1.0, 0.0, 0.0])
+    if np.linalg.norm(t1) < 1e-6:
+        t1 = np.cross(n, [0.0, 1.0, 0.0])
+    t1 /= np.linalg.norm(t1)
+    t2 = np.cross(n, t1)
+    rows = []
+    for tv in (t1, t2):
+        rows.append(mu * n - tv)
+        rows.append(mu * n + tv)
+    rows.append(n)
+    return np.stack(rows)
 
 
 def activation(kind: str, r, w, lb, ub):

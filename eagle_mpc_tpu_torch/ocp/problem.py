@@ -1,15 +1,19 @@
 """The shooting OCP as (static spec, parameter tensors).
 
-PyTorch counterpart of ``eagle_mpc_tpu.ocp.problem`` for free dynamics,
-the symplectic-Euler integrator and STATE/CONTROL/operational-frame cost
-slots:
+PyTorch counterpart of ``eagle_mpc_tpu.ocp.problem`` for free and
+contact-constrained dynamics (3-D and 6-D contacts with per-node activity,
+the friction cone on their forces), the symplectic-Euler integrator and
+STATE/CONTROL/operational-frame cost slots:
 
 - ``ProblemSpec``: static structure (robot model, cost slots, horizon, dt);
 - ``ProblemParams``: tensors a controller changes at run time (per-node
   weights, activity, references; global activation parameters; x0).
 
 ``from_trajectory`` builds both from a mission (the stages' costs as the
-union of slots, per-node weights and masks), unbatched.
+union of slots, per-node weights and masks; the stages' contacts as the
+union of contact slots, per-node activity and references), unbatched.
+Any contact anywhere makes every node run the constrained dynamics; an
+inactive contact reduces them exactly to free dynamics.
 
 A batched ``ProblemParams`` carries a leading scenario axis B on every
 leaf: ``x0`` (B, nx), node leaves (B, T+1, ...), global leaves (B, ...)
@@ -29,7 +33,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from ..config import specs as cspecs
-from ..dynamics import rbd
+from ..dynamics import lie, rbd
 from ..dynamics.model import RobotModel
 from ..dynamics.state import State
 from . import actuation as act
@@ -70,12 +74,15 @@ BARRIER_SLOT = "barrier"
 # ---------------------------------------------------------------------------
 
 class NodeParams(NamedTuple):
-    """Per-node cost parameters; node axis of length T+1 (index T is the
-    terminal node)."""
+    """Per-node cost and contact parameters; node axis of length T+1 (index
+    T is the terminal node). A spec without contacts has
+    ``contact_active`` None and no ``contact_refs``."""
 
     weight: torch.Tensor               # (T+1, K)
     active: torch.Tensor               # (T+1, K) float mask
     refs: Tuple[torch.Tensor, ...]     # per slot: (T+1, ref_dim)
+    contact_active: Optional[torch.Tensor] = None   # (T+1, NC) float mask
+    contact_refs: Tuple[torch.Tensor, ...] = ()     # per contact: (T+1, 3|7)
 
 
 class GlobalParams(NamedTuple):
@@ -99,10 +106,15 @@ class NodeView(NamedTuple):
     weight: torch.Tensor
     active: torch.Tensor
     refs: Tuple[torch.Tensor, ...]
+    contact_active: Optional[torch.Tensor] = None
+    contact_refs: Tuple[torch.Tensor, ...] = ()
 
 
 def map_params(fn, params):
-    """Apply ``fn`` to every tensor leaf of a parameter container."""
+    """Apply ``fn`` to every tensor leaf of a parameter container (None
+    stays None)."""
+    if params is None:
+        return None
     if isinstance(params, torch.Tensor):
         return fn(params)
     leaves = (map_params(fn, p) for p in params)
@@ -114,15 +126,20 @@ def expand_params(params: ProblemParams, B: int) -> ProblemParams:
     return map_params(lambda a: a.expand((B,) + a.shape), params)
 
 
+def node_views(node: NodeParams, index) -> NodeView:
+    """``node`` indexed by ``index`` on every leaf (batched node params
+    (B, T+1, ...): ``index`` selects along the node axis, e.g.
+    ``(slice(None), t)``)."""
+    return NodeView(*map_params(lambda a: a[index], node))
+
+
 def running_views(node: NodeParams, T: int) -> NodeView:
     """Views of the T running nodes of batched node params: (B, T, ...)."""
-    return NodeView(node.weight[:, :T], node.active[:, :T],
-                    tuple(r[:, :T] for r in node.refs))
+    return node_views(node, (slice(None), slice(None, T)))
 
 
 def terminal_view(node: NodeParams, T: int) -> NodeView:
-    return NodeView(node.weight[:, T], node.active[:, T],
-                    tuple(r[:, T] for r in node.refs))
+    return node_views(node, (slice(None), T))
 
 
 def glob_over_nodes(glob: GlobalParams) -> GlobalParams:
@@ -135,6 +152,20 @@ def glob_over_nodes(glob: GlobalParams) -> GlobalParams:
 # Problem spec
 # ---------------------------------------------------------------------------
 
+class ContactSlot(NamedTuple):
+    """Static description of one contact channel (Crocoddyl's
+    ContactModel3D / 6D as the reference's factory builds them; same fields
+    as the reference package's ``ContactSlot``). Per-node activity and the
+    reference position (3-D) or pose (6-D: position + quaternion) are
+    parameters; the Baumgarte gains (kp, kd) are static."""
+
+    name: str
+    frame_id: int
+    dim: int                 # 3 (point) or 6 (placement)
+    ref_dim: int             # 3 or 7
+    gains: Tuple[float, float] = (0.0, 0.0)
+
+
 @dataclasses.dataclass(frozen=True)
 class ProblemSpec:
     model: RobotModel
@@ -145,19 +176,25 @@ class ProblemSpec:
     T: int
     dt: float                                 # seconds
     use_squash: bool
-    contacts: tuple = ()
+    contacts: Tuple[ContactSlot, ...] = ()
 
     @property
     def state(self) -> State:
         return State(self.model.nq, self.model.nv)
+
+    @property
+    def nc_rows(self) -> int:
+        return sum(c.dim for c in self.contacts)
 
 
 def check_scope(spec: ProblemSpec) -> None:
     """Raise for a spec outside what this package evaluates."""
     if spec.integrator != EULER:
         raise NotImplementedError("only the Euler integrator is ported")
-    if spec.contacts:
-        raise NotImplementedError("contact dynamics are not ported yet")
+    for c in spec.contacts:
+        if not isinstance(c, ContactSlot) or c.dim not in (3, 6):
+            raise NotImplementedError(f"contact {c!r}: not a 3-D or 6-D "
+                                      "ContactSlot")
     for s in spec.slots:
         if s.kind not in C.SUPPORTED_KINDS or s.activation not in C.ACTIVATIONS:
             raise NotImplementedError(f"cost slot {s.name!r} ({s.kind}, "
@@ -192,25 +229,105 @@ def squash(spec: ProblemSpec, glob: GlobalParams, s):
                           glob.squash_smooth.unsqueeze(-1))
 
 
-def _dam(spec: ProblemSpec, glob: GlobalParams, x, s):
-    """Continuous free dynamics: (a, u_squash)."""
+def _contact_rows(spec: ProblemSpec, view: NodeView, x):
+    """Stacked constraint rows of every contact at x: the Jacobian
+    (..., nc, nv), the drift and Baumgarte terms a0 (..., nc) and each
+    row's activity (..., nc).
+
+    3-D contact: the LOCAL point acceleration (Crocoddyl's ContactModel3D:
+    the linear rows plus w x v_lin), Baumgarte on the position error in the
+    local frame and on the linear velocity. 6-D: the full LOCAL spatial
+    acceleration, Baumgarte on the SE(3) log of the pose error and on the
+    twist."""
+    nq = spec.model.nq
+    q, v = x[..., :nq], x[..., nq:]
+    Js, a0s, acts = [], [], []
+    for ci, c in enumerate(spec.contacts):
+        m, f = spec.model, c.frame_id
+        J6 = rbd.frame_jacobian_local(m, q, f)
+        drift = rbd.frame_accel_drift(m, q, v, f)
+        vf = rbd.frame_velocity(m, q, v, f)
+        p, R = rbd.frame_placement(m, q, f)
+        ref = view.contact_refs[ci]
+        kp, kd = c.gains
+        if c.dim == 3:
+            a0 = (drift[..., :3] + lie.cross(vf[..., 3:], vf[..., :3])
+                  + kp * lie.matvec(R.transpose(-1, -2), p - ref)
+                  + kd * vf[..., :3])
+            Js.append(J6[..., :3, :])
+        else:
+            RrefT = lie.quat_to_rot(ref[..., 3:7]).transpose(-1, -2)
+            err = lie.log6(lie.matvec(RrefT, p - ref[..., :3]),
+                           lie.rot_to_quat(RrefT @ R))
+            a0 = drift + kp * err + kd * vf
+            Js.append(J6)
+        a0s.append(a0)
+        ca = view.contact_active[..., ci:ci + 1]
+        acts.append(ca.expand(ca.shape[:-1] + (c.dim,)))
+    return (torch.cat(Js, dim=-2), torch.cat(a0s, dim=-1),
+            torch.cat(acts, dim=-1))
+
+
+def _split_forces(spec: ProblemSpec, lam):
+    """Per-contact LOCAL forces from the stacked multipliers."""
+    forces, off = [], 0
+    for c in spec.contacts:
+        forces.append(lam[..., off:off + c.dim])
+        off += c.dim
+    return tuple(forces)
+
+
+#: evaluations of the plain node dynamics (``_dam``) on tensors on the card
+#: since the last reset: a solve on the card makes none, K1 and K2 take them
+PLAIN_ON_CARD = 0
+
+
+def _dam(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x, s):
+    """Continuous dynamics, free or contact-constrained: (a, u_squash,
+    per-contact forces)."""
+    global PLAIN_ON_CARD
+    PLAIN_ON_CARD += x.device.type != "cpu"
     u = squash(spec, glob, s)
     tau = act.actuation_tau(tau_f_tensor(spec, x.device, x.dtype), u)
     nq = spec.model.nq
-    return rbd.fwd_dynamics(spec.model, x[..., :nq], x[..., nq:], tau), u
+    q, v = x[..., :nq], x[..., nq:]
+    if not spec.contacts:
+        return rbd.fwd_dynamics(spec.model, q, v, tau), u, ()
+    J, a0, active = _contact_rows(spec, view, x)
+    a, lam = rbd.contact_fwd_dynamics(spec.model, q, v, tau, J, a0, active)
+    return a, u, _split_forces(spec, lam)
 
 
-def _point_residuals(spec: ProblemSpec, view: NodeView, x, s, terminal: bool):
+@functools.lru_cache(maxsize=64)
+def cone_tensor(slot: C.CostSlot, device, dtype):
+    return torch.as_tensor(slot.cone_A, dtype=dtype, device=device)
+
+
+def _point_residuals(spec: ProblemSpec, view: NodeView, x, s, terminal: bool,
+                     forces=()):
     """Residual of every slot; control slots are zero at the terminal node.
-    The frame slots share one forward-kinematics cache built at x."""
+    The frame slots share one forward-kinematics cache built at x. A
+    friction-cone slot is A R f (f the contact's LOCAL force, R its frame's
+    world rotation), zero at the terminal node, without forces and for a
+    cone without a contact."""
     st = spec.state
     cache = C.build_fk_cache(spec.model, spec.slots, x[..., :st.nq],
                              x[..., st.nq:])
+    zeros = lambda n: torch.zeros(x.shape[:-1] + (n,), dtype=x.dtype,
+                                  device=x.device)
     rs = []
     for k, slot in enumerate(spec.slots):
-        if terminal and slot.kind == C.CONTROL:
-            rs.append(torch.zeros(x.shape[:-1] + (slot.nr,), dtype=x.dtype,
-                                  device=x.device))
+        if slot.kind == C.FRICTION_CONE:
+            if not forces or slot.contact_id < 0 or terminal:
+                rs.append(zeros(slot.nr))
+                continue
+            _, R = rbd.frame_placement(
+                spec.model, x[..., :st.nq],
+                spec.contacts[slot.contact_id].frame_id)
+            f_w = lie.matvec(R, forces[slot.contact_id][..., :3])
+            rs.append(lie.matvec(cone_tensor(slot, x.device, x.dtype), f_w))
+        elif terminal and slot.kind == C.CONTROL:
+            rs.append(zeros(slot.nr))
         else:
             rs.append(C.residual(spec.model, st, slot, view.refs[k], cache,
                                  x, s))
@@ -218,8 +335,8 @@ def _point_residuals(spec: ProblemSpec, view: NodeView, x, s, terminal: bool):
 
 
 def _point_cost(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x, s,
-                terminal: bool):
-    rs = _point_residuals(spec, view, x, s, terminal)
+                terminal: bool, forces=()):
+    rs = _point_residuals(spec, view, x, s, terminal, forces)
     total = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
     for k, slot in enumerate(spec.slots):
         a, _, _ = C.activation(slot.activation, rs[k], glob.act_w[k],
@@ -228,20 +345,22 @@ def _point_cost(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x, s,
     return total
 
 
-def _euler_step(spec: ProblemSpec, glob: GlobalParams, x, s):
+def _euler_step(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x, s):
     """Symplectic Euler: dq = v dt + a dt^2, dv = a dt. Returns
-    (xnext, u_squash)."""
+    (xnext, u_squash, per-contact forces)."""
     st = spec.state
     dt = spec.dt
-    a, u_sq = _dam(spec, glob, x, s)
+    a, u_sq, forces = _dam(spec, view, glob, x, s)
     vnext = x[..., st.nq:] + a * dt
-    return st.integrate(x, torch.cat([vnext * dt, a * dt], dim=-1)), u_sq
+    return (st.integrate(x, torch.cat([vnext * dt, a * dt], dim=-1)), u_sq,
+            forces)
 
 
 def node_calc(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x, s):
     """Running node: (xnext, discrete cost dt * l(x, s), u_squash)."""
-    xnext, u_sq = _euler_step(spec, glob, x, s)
-    return xnext, spec.dt * _point_cost(spec, view, glob, x, s, False), u_sq
+    xnext, u_sq, forces = _euler_step(spec, view, glob, x, s)
+    return xnext, spec.dt * _point_cost(spec, view, glob, x, s, False,
+                                        forces), u_sq
 
 
 def terminal_calc(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x):
@@ -294,14 +413,15 @@ def node_calc_diff(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x, s):
     Gauss-Newton."""
     st = spec.state
     ndx = st.ndx
-    xnext0, _ = _euler_step(spec, glob, x, s)
+    xnext0 = _euler_step(spec, view, glob, x, s)[0]
 
     def fun(z):
         xx = st.integrate(x, z[..., :ndx])
         ss = s + z[..., ndx:]
-        xnext, _ = _euler_step(spec, glob, xx, ss)
+        xnext, _, forces = _euler_step(spec, view, glob, xx, ss)
         return torch.cat([st.diff(xnext0, xnext)]
-                         + _point_residuals(spec, view, xx, ss, False), dim=-1)
+                         + _point_residuals(spec, view, xx, ss, False, forces),
+                         dim=-1)
 
     z0 = torch.zeros(x.shape[:-1] + (ndx + spec.nu,), dtype=x.dtype,
                      device=x.device)
@@ -345,13 +465,35 @@ def calc_diff_all(spec: ProblemSpec, params: ProblemParams, xs, us):
 
 
 def total_cost(spec: ProblemSpec, params: ProblemParams, xs, us):
-    """Total cost (B,) of candidates without the dynamics rollout (valid for
-    Euler without contacts: the running cost is dt * l(x_t, u_t))."""
-    costs = _point_cost(spec, running_views(params.node, spec.T),
-                        glob_over_nodes(params.glob), xs[:, :spec.T], us, False)
+    """Total cost (B,) of candidates without the dynamics rollout: under
+    Euler the running cost is dt * l(x_t, u_t). A contact spec evaluates
+    the whole node instead, as the reference does: the friction cone needs
+    the forces of the constrained dynamics; on the card K1 does it."""
+    views = running_views(params.node, spec.T)
+    glob = glob_over_nodes(params.glob)
     cT = terminal_calc(spec, terminal_view(params.node, spec.T), params.glob,
                        xs[:, spec.T])
+    if spec.contacts and xs.device.type != "cpu":
+        from ..ops import node_cuda
+
+        return node_cuda.calc_diff_running(spec, params, xs, us).cost.sum(1) + cT
+    if spec.contacts:
+        return node_calc(spec, views, glob, xs[:, :spec.T], us)[1].sum(1) + cT
+    costs = _point_cost(spec, views, glob, xs[:, :spec.T], us, False)
     return spec.dt * costs.sum(dim=1) + cT
+
+
+def contact_violation(spec: ProblemSpec, params: ProblemParams, xs, us):
+    """max |J a + a0| over each running node's active contact rows (B, T),
+    0 where none is active: how far the constrained dynamics at (xs, us)
+    leave the contacts' acceleration constraint (batched params, as the
+    solve used them). A check, in the plain version: after a solve on the
+    card, call it on host copies."""
+    views = running_views(params.node, spec.T)
+    x = xs[:, :spec.T]
+    J, a0, active = _contact_rows(spec, views, x)
+    a = _dam(spec, views, glob_over_nodes(params.glob), x, us)[0]
+    return (active * (lie.matvec(J, a) + a0)).abs().amax(dim=-1)
 
 
 def squashed_controls(spec: ProblemSpec, params: ProblemParams, us):
@@ -439,15 +581,35 @@ def from_trajectory(traj: cspecs.TrajectorySpec, dt_ms: Optional[int] = None,
     if not integrator:
         raise ValueError("Problem parameters not specified in the YAML file. "
                          "Pass dt/use_squash/integrator explicitly.")
-    if traj.has_contact or any(c.type == cspecs.COST_FRICTION_CONE
-                               for st in traj.stages for c in st.costs):
-        raise NotImplementedError(
-            f"{traj.name}: contacts and friction-cone costs come with the "
-            "contact slice of the port")
     device = torch.device("cuda") if device is None else device
     integ = _INTEGRATOR_MAP[integrator]
     model = traj.model
     nx, nu = model.nx, traj.nu
+
+    # the contact union: one slot per (frame, dimension)
+    contact_keys = {}
+    contact_slots: list = []
+    stage_contact_idx = []   # per stage: [(contact index, contact)]
+    for st in traj.stages:
+        entries = []
+        for con in st.contacts:
+            dim = 6 if con.type == cspecs.CONTACT_6D else 3
+            key = (con.frame_id, dim)
+            if key not in contact_keys:
+                contact_keys[key] = len(contact_slots)
+                contact_slots.append(ContactSlot(
+                    name=con.name, frame_id=con.frame_id, dim=dim,
+                    ref_dim=7 if dim == 6 else 3,
+                    gains=tuple(float(g) for g in con.gains)))
+            entries.append((contact_keys[key], con))
+        stage_contact_idx.append(entries)
+
+    def cone_contact_id(frame_id: int) -> int:
+        """The first contact slot on a cone's frame, or -1."""
+        for i, cs in enumerate(contact_slots):
+            if cs.frame_id == frame_id:
+                return i
+        return -1
 
     # the slot union: one slot per static signature
     slot_keys = {}
@@ -461,12 +623,19 @@ def from_trajectory(traj: cspecs.TrajectorySpec, dt_ms: Optional[int] = None,
             if key not in slot_keys:
                 slot_keys[key] = len(slots)
                 kind = _KIND_MAP[cost.type]
-                ref_dims = {C.STATE: nx, C.CONTROL: nu}
+                ref_dims = {C.STATE: nx, C.CONTROL: nu, C.FRICTION_CONE: 0}
+                cone = None
+                if cost.n_surf is not None:
+                    cone = tuple(map(tuple, C.friction_cone_matrix(
+                        cost.n_surf, cost.mu)))
                 slots.append(C.CostSlot(
                     name=f"{st.name}/{cost.name}", kind=kind,
                     activation=_ACT_MAP[cost.activation], nr=cost.nr,
                     ref_dim=ref_dims.get(kind, C.REF_DIMS.get(kind, cost.nr)),
-                    frame_id=cost.frame_id))
+                    frame_id=cost.frame_id,
+                    contact_id=cone_contact_id(cost.frame_id)
+                    if kind == C.FRICTION_CONE else -1,
+                    cone_A=cone))
                 slot_specs.append(cost)
             entries.append((slot_keys[key], cost))
         stage_slot_idx.append(entries)
@@ -484,7 +653,7 @@ def from_trajectory(traj: cspecs.TrajectorySpec, dt_ms: Optional[int] = None,
     spec = ProblemSpec(
         model=model, nu=nu, tau_f=tuple(map(tuple, traj.platform.tau_f)),
         slots=tuple(slots), integrator=integ, T=T, dt=dt_ms / 1000.0,
-        use_squash=use_squash)
+        use_squash=use_squash, contacts=tuple(contact_slots))
 
     K = len(slots)
     weight = np.zeros((T + 1, K))
@@ -497,11 +666,24 @@ def from_trajectory(traj: cspecs.TrajectorySpec, dt_ms: Optional[int] = None,
             node_stage[t] = si
             t += 1
     node_stage[T] = term_stage
+    NC = len(contact_slots)
+    contact_active = np.zeros((T + 1, NC))
+    contact_refs = []
+    for cs in contact_slots:
+        r = np.zeros(cs.ref_dim)
+        if cs.ref_dim == 7:
+            r[6] = 1.0   # the identity quaternion
+        contact_refs.append(np.tile(r, (T + 1, 1)))
     for t in range(T + 1):
         for k, cost in stage_slot_idx[node_stage[t]]:
             weight[t, k] = cost.weight
             active[t, k] = 1.0 if cost.active else 0.0
             refs[k][t] = _encode_ref(cost, nx, nu)
+        for c, con in stage_contact_idx[node_stage[t]]:
+            contact_active[t, c] = 1.0
+            contact_refs[c][t] = (
+                np.concatenate([con.position, con.orientation])
+                if contact_slots[c].ref_dim == 7 else con.position)
 
     s_lb = np.asarray(traj.platform.u_lb, dtype=np.float64)
     s_ub = np.asarray(traj.platform.u_ub, dtype=np.float64)
@@ -527,9 +709,27 @@ def from_trajectory(traj: cspecs.TrajectorySpec, dt_ms: Optional[int] = None,
     params = ProblemParams(
         x0=cvt(traj.initial_state),
         node=NodeParams(weight=cvt(weight), active=cvt(active),
-                        refs=tuple(cvt(r) for r in refs)),
+                        refs=tuple(cvt(r) for r in refs),
+                        contact_active=cvt(contact_active) if NC else None,
+                        contact_refs=tuple(cvt(r) for r in contact_refs)),
         glob=GlobalParams(
             act_w=tuple(cvt(a) for a in act_w), lb=tuple(cvt(a) for a in lbs),
             ub=tuple(cvt(a) for a in ubs), squash_smooth=cvt(squash_smooth),
             s_lb=cvt(s_lb), s_ub=cvt(s_ub)))
     return spec, params
+
+
+def contact_6d(traj: cspecs.TrajectorySpec) -> cspecs.TrajectorySpec:
+    """``traj`` with every contact switched to a 6-D one that holds its
+    frame's initial pose: the reference orientation is the frame's at the
+    initial state, the position stays the mission's (a test variant of a
+    3-D contact mission)."""
+    q0 = torch.as_tensor(np.asarray(traj.initial_state)[:traj.model.nq])
+
+    def six(con):
+        R = rbd.frame_placement(traj.model, q0, con.frame_id)[1]
+        return dataclasses.replace(con, type="ContactModel6D",
+                                   orientation=lie.rot_to_quat(R).numpy())
+    return dataclasses.replace(traj, stages=tuple(
+        dataclasses.replace(st, contacts=tuple(six(c) for c in st.contacts))
+        for st in traj.stages))

@@ -43,9 +43,13 @@ MAX_BODIES = MAX_NJ + 1
 MAX_NV = 6 + MAX_NJ
 MAX_NU = 12
 MAX_SLOTS = 12
+MAX_CONTACTS = 2
+MAX_NC = 6          # constraint rows: one 6-D contact or two 3-D ones
+CONE_ROWS = 5
 
 _KIND = {C.STATE: 0, C.CONTROL: 1, C.FRAME_PLACEMENT: 2,
-         C.FRAME_TRANSLATION: 3, C.FRAME_ROTATION: 4, C.FRAME_VELOCITY: 5}
+         C.FRAME_TRANSLATION: 3, C.FRAME_ROTATION: 4, C.FRAME_VELOCITY: 5,
+         C.FRICTION_CONE: 6}
 _ACT = {C.QUAD: 0, C.WQUAD: 1, C.QBARRIER: 2, C.WQBARRIER: 3}
 
 
@@ -60,6 +64,10 @@ class ModelDesc(ctypes.Structure):
         ("dt", ctypes.c_double),
         ("slot_fp", ctypes.c_double * (MAX_SLOTS * 3)),
         ("slot_fR", ctypes.c_double * (MAX_SLOTS * 9)),
+        ("slot_cone", ctypes.c_double * (MAX_SLOTS * 3 * CONE_ROWS)),
+        ("con_fp", ctypes.c_double * (MAX_CONTACTS * 3)),
+        ("con_fR", ctypes.c_double * (MAX_CONTACTS * 9)),
+        ("con_gain", ctypes.c_double * (MAX_CONTACTS * 2)),
         ("parent", ctypes.c_int * MAX_NJ),
         ("joint_type", ctypes.c_int * MAX_NJ),
         ("nj", ctypes.c_int), ("nq", ctypes.c_int), ("nv", ctypes.c_int),
@@ -73,6 +81,13 @@ class ModelDesc(ctypes.Structure):
         ("slot_ref_off", ctypes.c_int * MAX_SLOTS),
         ("slot_glob_off", ctypes.c_int * MAX_SLOTS),
         ("slot_body", ctypes.c_int * MAX_SLOTS),
+        ("slot_contact", ctypes.c_int * MAX_SLOTS),
+        ("n_con", ctypes.c_int), ("nc", ctypes.c_int),
+        ("con_dim", ctypes.c_int * MAX_CONTACTS),
+        ("con_body", ctypes.c_int * MAX_CONTACTS),
+        ("con_row", ctypes.c_int * MAX_CONTACTS),
+        ("con_ref_off", ctypes.c_int * MAX_CONTACTS),
+        ("con_act_off", ctypes.c_int),
     ]
 
 
@@ -205,10 +220,13 @@ def make_descriptor(spec: P.ProblemSpec) -> ModelDesc:
     P.check_scope(spec)
     m = spec.model
     n_rot = len(spec.tau_f[0])
-    if m.nj > MAX_NJ or spec.nu > MAX_NU or len(spec.slots) > MAX_SLOTS:
+    if (m.nj > MAX_NJ or spec.nu > MAX_NU or len(spec.slots) > MAX_SLOTS
+            or len(spec.contacts) > MAX_CONTACTS or spec.nc_rows > MAX_NC):
         raise NotImplementedError(
             f"spec exceeds the kernels' maxima (nj {m.nj} > {MAX_NJ}, "
-            f"nu {spec.nu} > {MAX_NU} or {len(spec.slots)} slots > {MAX_SLOTS})")
+            f"nu {spec.nu} > {MAX_NU}, {len(spec.slots)} slots > {MAX_SLOTS}, "
+            f"{len(spec.contacts)} contacts > {MAX_CONTACTS} or "
+            f"{spec.nc_rows} constraint rows > {MAX_NC})")
     if spec.nu != n_rot + m.nj:
         raise NotImplementedError("controls must be rotor thrusts + joint torques")
     d = ModelDesc()
@@ -237,8 +255,31 @@ def make_descriptor(spec: P.ProblemSpec) -> ModelDesc:
             d.slot_body[k] = f.body
             d.slot_fp[3 * k:3 * k + 3] = np.asarray(f.p, float).reshape(-1).tolist()
             d.slot_fR[9 * k:9 * k + 9] = np.asarray(f.R, float).reshape(-1).tolist()
+        d.slot_contact[k] = -1
+        if s.kind == C.FRICTION_CONE:
+            if s.contact_id >= len(spec.contacts):
+                raise NotImplementedError(
+                    f"cone slot {s.name!r} on contact {s.contact_id}, of "
+                    f"{len(spec.contacts)}")
+            d.slot_contact[k] = s.contact_id
+            k15 = 3 * CONE_ROWS * k
+            d.slot_cone[k15:k15 + 3 * CONE_ROWS] = np.asarray(
+                s.cone_A, float).reshape(-1).tolist()
         ref_off += s.ref_dim
         glob_off += 3 * s.nr
+    # the contacts: their activity, then their references, after the slots'
+    d.n_con, d.nc, d.con_act_off = len(spec.contacts), spec.nc_rows, ref_off
+    ref_off += len(spec.contacts)
+    row = 0
+    for c, con in enumerate(spec.contacts):
+        f = m.frames[con.frame_id]
+        d.con_dim[c], d.con_body[c], d.con_row[c] = con.dim, f.body, row
+        d.con_ref_off[c] = ref_off
+        d.con_fp[3 * c:3 * c + 3] = np.asarray(f.p, float).reshape(-1).tolist()
+        d.con_fR[9 * c:9 * c + 9] = np.asarray(f.R, float).reshape(-1).tolist()
+        d.con_gain[2 * c:2 * c + 2] = [float(g) for g in con.gains]
+        row += con.dim
+        ref_off += con.ref_dim
     d.n_res = sum(s.nr for s in spec.slots)
     d.node_dim, d.glob_dim = ref_off, glob_off
     return d
@@ -267,18 +308,23 @@ def descriptor_args(spec: P.ProblemSpec, device):
 
 def pack_params(spec: P.ProblemSpec, params: P.ProblemParams, dtype, device):
     """Batched params -> (node rows (B, T, node_dim) of the running nodes:
-    [weight, active, refs...]; global rows (B, glob_dim): [smooth, s_lb,
-    s_ub, per slot (act_w, lb, ub)]), checked against the spec's layout."""
+    [weight, active, refs..., contact activity, contact refs...]; global rows
+    (B, glob_dim): [smooth, s_lb, s_ub, per slot (act_w, lb, ub)]), checked
+    against the spec's layout."""
     T, B = spec.T, params.x0.shape[0]
     node, glob = params.node, params.glob
+    contact = ([node.contact_active[:, :T]]
+               + [r[:, :T] for r in node.contact_refs]) if spec.contacts else []
     node_rows = torch.cat([node.weight[:, :T], node.active[:, :T]]
-                          + [r[:, :T] for r in node.refs], dim=-1).contiguous()
+                          + [r[:, :T] for r in node.refs] + contact,
+                          dim=-1).contiguous()
     parts = [glob.squash_smooth[:, None], glob.s_lb, glob.s_ub]
     for a, lo, hi in zip(glob.act_w, glob.lb, glob.ub):
         parts += [a, lo, hi]
     glob_rows = torch.cat(parts, dim=-1).contiguous()
     K = len(spec.slots)
-    node_dim = 2 * K + sum(s.ref_dim for s in spec.slots)
+    node_dim = (2 * K + sum(s.ref_dim for s in spec.slots) + len(spec.contacts)
+                + sum(c.ref_dim for c in spec.contacts))
     glob_dim = 1 + 2 * spec.nu + 3 * sum(s.nr for s in spec.slots)
     check_tensor(node_rows, "node params", (B, T, node_dim), dtype, device)
     check_tensor(glob_rows, "global params", (B, glob_dim), dtype, device)

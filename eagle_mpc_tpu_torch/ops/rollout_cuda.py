@@ -42,8 +42,7 @@ def rollout_plain(spec: P.ProblemSpec, params: P.ProblemParams, xs, us, k, K,
         u = us[:, None, t] - al * k[:, None, t] - (K[:, None, t] @ dx[..., None])[..., 0]
         if box:
             u = torch.minimum(torch.maximum(u, glob.s_lb), glob.s_ub)
-        view = P.NodeView(node.weight[:, None, t], node.active[:, None, t],
-                          tuple(r[:, None, t] for r in node.refs))
+        view = P.node_views(node, (slice(None), None, t))
         xn, c, _ = P.node_calc(spec, view, glob, x, u)
         xs_try.append(x)
         us_try.append(u)

@@ -1,7 +1,7 @@
 """Profile the port's flagship tick or offline solve on one card: where
 the time goes.
 
-    python3 -m eagle_mpc_tpu_torch.profile_tick [carrot|weighted|rail|offline|closed_loop]
+    python3 -m eagle_mpc_tpu_torch.profile_tick [carrot|weighted|rail|offline|closed_loop|contacts]
 
 Runs a path of ``chip_smoke.py`` (hexacopter370_flying_arm_3 displacement,
 float32; the carrot path by default). An MPC path (offline reference,
@@ -9,7 +9,9 @@ B=512, from its start time): the depth-30 warm start and one settle chunk
 of 10 chained ticks, then 3 ticks unprofiled (the tick time) and 3 more
 under ``torch.profiler``. ``offline``: the offline solve at B=1 (T=132,
 ``sbfddp.solve``, maxiter 400), once to warm up, once unprofiled and once
-under the profiler. ``closed_loop``: the B=1 closed loop of
+under the profiler. ``contacts``: the same for the contact mission
+eagle_catch at dt 50 ms (T=70, a 3-D contact and a friction cone;
+``chip_smoke.py``'s phase 8, maxiter 150). ``closed_loop``: the B=1 closed loop of
 ``chip_smoke.py``'s phase 7 (``run_closed_loop``, the while-loop route),
 10 ticks to warm up, 10 unprofiled (the tick time) and 3 from the start
 under the profiler, per tick. The solver's named functions are wrapped in
@@ -148,8 +150,9 @@ def profile(device, batch, path="carrot"):
     _profile_and_report(device, _spans(type(ctrl)), run, TICKS, "tick")
 
 
-def profile_offline(device):
-    """The offline solve of ``chip_smoke``'s phase offline (float32, B=1):
+def profile_offline(device, contacts=False):
+    """The offline solve of ``chip_smoke``'s phase offline (float32, B=1),
+    or with ``contacts`` that of eagle_catch in its phase contacts:
     warm-up, timed and profiled; prints the report per solver
     iteration."""
     import torch
@@ -158,8 +161,14 @@ def profile_offline(device):
     from .solvers import sbfddp
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    spec, params = cs.offline_problem(device, torch.float32)
-    solve = lambda: sbfddp.solve(spec, params, maxiter=cs.OFFLINE_MAXITER)
+    if contacts:
+        spec, params = cs.contact_problem(device, torch.float32,
+                                          *cs.CONTACT_MISSIONS["ec"])
+        maxiter = cs.CONTACT_MAXITER
+    else:
+        spec, params = cs.offline_problem(device, torch.float32)
+        maxiter = cs.OFFLINE_MAXITER
+    solve = lambda: sbfddp.solve(spec, params, maxiter=maxiter)
     solve()
     sync()
     t0 = time.perf_counter()
@@ -167,7 +176,8 @@ def profile_offline(device):
     sync()
     solve_ms = (time.perf_counter() - t0) * 1e3
     iters = int(res.iters[0])
-    print(f"offline solve f32 B=1 T={spec.T}: {solve_ms:.3f} ms unprofiled, "
+    print(f"{'contacts' if contacts else 'offline'} solve f32 B=1 T={spec.T}: "
+          f"{solve_ms:.3f} ms unprofiled, "
           f"{iters} iterations, {solve_ms / iters:.3f} ms per iteration",
           flush=True)
     _profile_and_report(device, _offline_spans(), solve, iters, "iteration")
@@ -263,8 +273,8 @@ def main(args):
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
     for path in args or ["carrot"]:
-        if path == "offline":
-            profile_offline(torch.device("cuda", 0))
+        if path in ("offline", "contacts"):
+            profile_offline(torch.device("cuda", 0), path == "contacts")
         elif path == "closed_loop":
             profile_closed_loop(torch.device("cuda", 0))
         else:

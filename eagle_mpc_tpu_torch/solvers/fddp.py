@@ -324,8 +324,7 @@ def _forward_pass_multi(spec, settings, params, xs, us, bp, fs, alphas,
     gap = fs[:, None, -1] * (alphas[None, :, None] - 1.0)
     xT = torch.where(keep[..., None], st.integrate(xn, gap), xn)
     node = params.node
-    tview = P.NodeView(node.weight[:, None, T], node.active[:, None, T],
-                       tuple(r[:, None, T] for r in node.refs))
+    tview = P.node_views(node, (slice(None), None, T))
     cT = P.terminal_calc(spec, tview, P.glob_over_nodes(params.glob), xT)
     cost_try = cs.sum(dim=-1) + cT
     th = settings.th_diverge

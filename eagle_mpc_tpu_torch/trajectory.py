@@ -5,11 +5,15 @@
         [--batch B --noise 0.05 --seed S] [--out PATH.npz]
 
 Loads ``missions/<robot>/trajectories/<mission>.yaml``, builds the problem
-(``problem.from_trajectory``, squashed controls, Euler) and solves it with
+(``problem.from_trajectory``, squashed controls, Euler; a mission with
+contacts gets the contact-constrained dynamics) and solves it with
 ``sbfddp.solve`` (homotopy stages of the while-loop FDDP, then the DDP
 polish), on the card unless ``--cpu`` is given. On the card the solve
 runs twice and the second time is the steady one: the first includes the
-kernels' build and torch's lazy loading of its own kernels.
+kernels' build and torch's lazy loading of its own kernels. A contact
+mission also prints the contact invariant of each element: the largest
+|J a + a0| over the active contact rows of its nodes, evaluated on the
+host in float64 after the solve.
 
 - ``--verbose`` prints the per-iteration trace of element 0;
 - ``--batch B`` solves B copies at once, x0 perturbed by seeded normal
@@ -78,7 +82,8 @@ def main(argv=None) -> int:
                                          args.seed))
     print(f"{args.robot}/{args.mission}: T={spec.T} nodes, dt={args.dt} ms, "
           f"nx={spec.model.nx}, nu={spec.nu}, {len(spec.slots)} cost slots, "
-          f"B={args.batch}, {dtype}, {device}", flush=True)
+          f"{len(spec.contacts)} contacts, B={args.batch}, {dtype}, {device}",
+          flush=True)
 
     settings = sbfddp.SbFddpSettings(
         solver=fddp.SolverSettings(record_trace=args.verbose))
@@ -93,11 +98,20 @@ def main(argv=None) -> int:
         print(f"solve {run + 1} of {runs}: {ms:.1f} ms, iters max {it} "
               f"({ms / max(it, 1):.2f} ms per iteration of the slowest "
               f"element)", flush=True)
+    hold = None
+    if spec.contacts:   # a check on host copies, in float64
+        host64 = lambda a: a.detach().to("cpu", torch.float64)
+        solved = sbfddp._set_homotopy(spec, P.map_params(host64, pb),
+                                      float(res.smooth.max()))
+        hold = P.contact_violation(spec, solved, host64(res.xs),
+                                   host64(res.us)).amax(dim=1)
     for b in range(args.batch):
         print(f"element {b}: iters {int(res.iters[b])} cost "
               f"{float(res.cost[b]):.10g} feasible {bool(res.feasible[b])} "
               f"failed {bool(res.failed[b])} final position "
-              f"{res.xs[b, -1, :3].tolist()}")
+              f"{res.xs[b, -1, :3].tolist()}"
+              + ("" if hold is None else
+                 f" contact max |J a + a0| {float(hold[b]):.3e}"))
     if args.verbose:
         print(fddp.format_trace(fddp.IterTrace(*(a[0] for a in res.trace))))
     if args.out:

@@ -140,35 +140,58 @@ def test_pack_params_matches_descriptor(ctrls):
 
 
 @pytest.mark.parametrize("change", ["rk4", "no_slots", "frame_cost",
-                                    "contacts", "friction_cone"])
+                                    "contacts", "friction_cone",
+                                    "contact_rows", "cone_contact"])
 def test_out_of_scope_spec_raises(ctrls, change):
-    """The kernels take free dynamics, Euler and 0 to 12 STATE / CONTROL /
-    frame slots; any other spec raises instead of running a different path
-    (frame_cost: a frame slot past the 12 the kernels hold; no_slots: the
-    slot-less spec is taken, as the JAX package evaluates it, and raises
-    once it also has contacts)."""
+    """The kernels take Euler, free or contact dynamics with up to 6
+    constraint rows (one 6-D contact or two 3-D ones), and 0 to 12 STATE /
+    CONTROL / frame / friction-cone slots; any other spec raises instead of
+    running a different path. Raise: rk4; frame_cost, a frame slot past the
+    12 the kernels hold; contact_rows, a 6-D and a 3-D contact (9 rows);
+    cone_contact, a cone on a contact the spec lacks. Taken: no_slots, the
+    slot-less spec (as the JAX package evaluates it), with a contact too;
+    contacts, the gripper's 3-D or 6-D contact, or two 3-D ones;
+    friction_cone, a cone on the gripper's contact."""
     spec = ctrls[1].spec
     grip = C.CostSlot("grip", C.FRAME_TRANSLATION, C.QUAD, 3, 3, frame_id=0)
+    fid = spec.model.frame_id("flying_arm_3__gripper")
+    c3 = P.ContactSlot("grip3", fid, 3, 3, (10.0, 5.0))
+    c6 = P.ContactSlot("grip6", fid, 6, 7)
+    cone = C.CostSlot("cone", C.FRICTION_CONE, C.QBARRIER, 5, 0, frame_id=fid,
+                      contact_id=0, cone_A=tuple(map(tuple, C.friction_cone_matrix(
+                          [0.0, 0.0, 1.0], 0.7))))
+    change_spec = lambda **kw: dataclasses.replace(spec, **kw)
     bad = {
         "rk4": dict(integrator=P.RK4),
-        "no_slots": dict(slots=(), contacts=("gripper",)),
         "frame_cost": dict(slots=spec.slots + (grip,) * (
             _cuda.MAX_SLOTS + 1 - len(spec.slots))),
-        "contacts": dict(contacts=("gripper",)),
-        "friction_cone": dict(slots=spec.slots + (C.CostSlot(
-            "cone", C.FRICTION_CONE, C.QBARRIER, 5, 0, frame_id=0,
-            contact_id=0),)),
-    }[change]
-    with pytest.raises(NotImplementedError):
-        _cuda.make_descriptor(dataclasses.replace(spec, **bad))
+        "contact_rows": dict(contacts=(c6, c3)),
+        "cone_contact": dict(slots=spec.slots + (cone._replace(contact_id=1),),
+                             contacts=(c3,)),
+    }
+    taken = {
+        "no_slots": [dict(slots=()), dict(slots=(), contacts=(c3,))],
+        "frame_cost": [dict(slots=spec.slots + (grip,) * (
+            _cuda.MAX_SLOTS - len(spec.slots)))],
+        "contacts": [dict(contacts=(c3,)), dict(contacts=(c6,)),
+                     dict(contacts=(c3, c3._replace(name="b")))],
+        "friction_cone": [dict(slots=spec.slots + (cone,), contacts=(c3,))],
+    }
+    if change in bad:
+        with pytest.raises(NotImplementedError):
+            _cuda.make_descriptor(change_spec(**bad[change]))
+    for kw in taken.get(change, ()):
+        d = _cuda.make_descriptor(change_spec(**kw))
+        assert d.n_con == len(kw.get("contacts", ()))
+        assert d.nc == sum(c.dim for c in kw.get("contacts", ()))
     if change == "no_slots":
-        d = _cuda.make_descriptor(dataclasses.replace(spec, slots=()))
+        d = _cuda.make_descriptor(change_spec(slots=()))
         assert (d.n_slots, d.n_res, d.node_dim) == (0, 0, 0)
         assert d.glob_dim == 1 + 2 * spec.nu
-    # a frame slot inside the maximum is taken
-    if change == "frame_cost":
-        _cuda.make_descriptor(dataclasses.replace(
-            spec, slots=spec.slots + (grip,) * (_cuda.MAX_SLOTS - len(spec.slots))))
+    if change == "friction_cone":
+        d = _cuda.make_descriptor(change_spec(slots=spec.slots + (cone,),
+                                              contacts=(c3,)))
+        assert d.slot_contact[len(spec.slots)] == 0
 
 
 def test_wrappers_refuse_other_devices(ctrls):

@@ -3,8 +3,9 @@ package, float64 on the CPU (the kernels' plain versions):
 
 - ``problem.from_trajectory`` field by field for every free-flight
   mission at dt 30 ms and iris hover at dt 60 ms (the JAX package's is plain
-  numpy and runs here as it is); the contact missions raise; the
-  duration-0 rules of ``stage_knots``;
+  numpy and runs here as it is), and for the contact missions (their
+  contact slots, activity and references too) at dt 30 and at the dt of
+  tests/test_contacts.py; the duration-0 rules of ``stage_knots``;
 - against tests/fixtures/torch_port_offline.npz (JAX, made by
   ``tools/make_torch_port_fixtures.py offline``): the smoke solve
   (``sbfddp.solve`` on iris hover at dt 60, maxiter 60, trace recorded:
@@ -71,8 +72,8 @@ def smoke(hover):
     return sbfddp.solve(spec, pb, maxiter=60, settings=st)
 
 
-@pytest.mark.parametrize("rel,dt_ms", FREE)
-def test_from_trajectory_matches_jax(rel, dt_ms):
+def _matches_jax(rel, dt_ms):
+    """The port's from_trajectory equals the JAX package's field by field."""
     spec, params = _build(rel, dt_ms)
     jspec, jparams = JP.from_trajectory(
         jspecs.load_trajectory(rel, yaml_dir=MISSIONS), dt_ms=dt_ms,
@@ -85,21 +86,37 @@ def test_from_trajectory_matches_jax(rel, dt_ms):
     assert spec.model.nx == jspec.model.nx and spec.model.nj == jspec.model.nj
     got, want = [], []
     P.map_params(got.append, params)
-    for a in (jparams.x0, jparams.node.weight, jparams.node.active,
-              *jparams.node.refs, *jparams.glob.act_w, *jparams.glob.lb,
-              *jparams.glob.ub, jparams.glob.squash_smooth, jparams.glob.s_lb,
-              jparams.glob.s_ub):
+    node = jparams.node
+    contact = ([node.contact_active] if node.contact_active is not None
+               else []) + list(node.contact_refs)
+    for a in (jparams.x0, node.weight, node.active, *node.refs, *contact,
+              *jparams.glob.act_w, *jparams.glob.lb, *jparams.glob.ub,
+              jparams.glob.squash_smooth, jparams.glob.s_lb, jparams.glob.s_ub):
         want.append(np.asarray(a))
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.dtype == F64 and g.device == CPU
         np.testing.assert_array_equal(g.numpy(), w)
+    return spec, params
+
+
+@pytest.mark.parametrize("rel,dt_ms", FREE)
+def test_from_trajectory_matches_jax(rel, dt_ms):
+    spec, params = _matches_jax(rel, dt_ms)
+    assert spec.contacts == () and params.node.contact_active is None
 
 
 @pytest.mark.parametrize("rel", CONTACT)
 def test_contact_missions_raise(rel):
-    with pytest.raises(NotImplementedError, match="contact"):
-        _build(rel, 30)
+    """The contact missions, which raised before the port took contacts,
+    build and match the JAX package at dt 30 and at the dt of
+    tests/test_contacts.py (eagle_catch 50, monkey_bar 40): one 3-D contact
+    slot on the gripper, active on the contact stage's nodes."""
+    for dt_ms in (30, 50 if "eagle_catch" in rel else 40):
+        spec, params = _matches_jax(rel, dt_ms)
+        assert len(spec.contacts) == 1 and spec.contacts[0].dim == 3
+        ca = params.node.contact_active
+        assert ca.shape == (spec.T + 1, 1) and 0 < float(ca.sum()) < spec.T
 
 
 def test_stage_knots_duration_zero_rules():

@@ -90,10 +90,45 @@ The closed-loop layer (``torch_port_closed_loop.npz``, ``closed_loop``):
 - ``up_*``: the flagship CarrotMpc's ``update_problem`` at the times of
   tests/test_torch_mpc.py (activity and each slot's references).
 
-Compiling the solvers takes a few minutes on a CPU (about 2 minutes per
-controller). Regenerate all five, or the ones named, with
+The contact layer (``torch_port_contacts.npz``, ``contacts``; the
+gripper frame of hexacopter370_flying_arm_3):
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship weighted rail offline closed_loop]
+- ``dyn_*``: at 4 random states (seed 5) and random generalized forces
+  (seed 6), ``rbd.frame_jacobian_local``, ``frame_accel_drift``,
+  ``frame_velocity`` and ``contact_fwd_dynamics`` with the 3-D rows all
+  active (a0 the drift plus w x v), the 6-D rows all active (a0 the
+  drift), the 6-D rows half active (the linear ones) and the 3-D rows
+  inactive with a random a0; ``fwd_dynamics``; ``kinetic_energy`` and
+  ``potential_energy``;
+- ``mb_*`` / ``ec_*``: ``sbfddp.solve`` (maxiter 150) of monkey_bar at dt
+  40 ms (T = 45) and eagle_catch at dt 50 ms (T = 70), the dt values of
+  tests/test_contacts.py; ``*_eps_*`` the same solve from x0 + 1e-12 (off
+  the quaternion), which lands elsewhere (the solves amplify round-off far
+  past any tolerance, so they are held to feasibility and invariants, not
+  to these states); ``*_b64_*`` the same solve in float32 (a process
+  without x64) vmapped over the 64 starts of chip_smoke.py's phase 8 step
+  2 (x0 plus seeded noise, seed 0, sd 0.05, quaternion untouched):
+  iterations, feasibility and failure per element, and the feasibility
+  of the same solve from B64_REPLICAS round-off copies of those starts
+  (``*_b64_spread_feasible``: copy k moves every entry off the quaternion
+  by k * 1e-6, a few float32 ulps); and ``node_calc_diff``
+  at the nodes
+  ``*_nodes`` of the solution (contact-active, inactive and friction-cone
+  nodes) with the parameters as ``from_trajectory`` builds them
+  (``*_cd_*``); ``ecr_*`` the same at eagle_catch's contact nodes 31 and
+  34 of a rough candidate (the solution plus seeded noise, seed 9: sd 0.05
+  on the states, quaternions renormalized, 0.5 on the controls), where the
+  friction cone's barrier is active;
+- ``m6_*``: ``node_calc_diff`` at contact-active nodes of monkey_bar's
+  solution for monkey_bar with its contact switched to ContactModel6D
+  (reference orientation the gripper's at the initial state);
+- ``it_*``: ``fddp.solve_fddp`` of monkey_bar at dt 100 ms (T = 18) from
+  ``default_init``, maxiter 3, th_stop 1e-9, the trace recorded.
+
+Compiling the solvers takes a few minutes on a CPU (about 2 minutes per
+controller). Regenerate all six, or the ones named, with
+
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship weighted rail offline closed_loop contacts]
 """
 
 import os
@@ -386,6 +421,40 @@ print(json.dumps(dict(iters=int(r.iters), cost=float(r.cost),
 """
 
 
+B64_REPLICAS = 4  # round-off copies of the f32 B=64 starts (contacts)
+B64_F32 = """
+import json, os, sys
+sys.path.insert(0, {root!r})
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+from eagle_mpc_tpu.config import specs
+from eagle_mpc_tpu.ocp import problem as P
+from eagle_mpc_tpu.solvers import sbfddp
+traj = specs.load_trajectory({rel!r}, yaml_dir={missions!r})
+spec, params = P.from_trajectory(traj, dt_ms={dt}, use_squash=True,
+                                 integrator="IntegratedActionModelEuler",
+                                 dtype=jnp.float32)
+d = np.random.default_rng(0).normal(size=(64, spec.model.nx)) * 0.05
+d[:, 3:7] = 0.0
+x0s = (np.asarray(params.x0, np.float64) + d).astype(np.float32)
+f = jax.jit(jax.vmap(lambda x0: sbfddp.solve(
+    spec, params._replace(x0=x0), maxiter=150)))
+r = f(x0s)
+assert r.xs.dtype == jnp.float32
+spread = []
+for k in range(1, {replicas} + 1):
+    dx = np.full(x0s.shape, k * 1e-6, np.float32)
+    dx[:, 3:7] = 0.0
+    spread.append(np.asarray(f(x0s + dx).feasible).tolist())
+print(json.dumps(dict(iters=np.asarray(r.iters).tolist(),
+                      feasible=np.asarray(r.feasible).tolist(),
+                      failed=np.asarray(r.failed).tolist(),
+                      spread_feasible=spread)))
+"""
+
+
 def closed_loop_fixture(missions, mp, traj, ref, sim):
     """The closed-loop layer's JAX values (module docstring); ``mp``,
     ``traj``, ``ref`` and ``sim`` are the flagship's."""
@@ -534,6 +603,142 @@ def closed_loop_fixture(missions, mp, traj, ref, sim):
     return out
 
 
+def contact_6d(traj):
+    """``traj`` with every contact switched to a 6-D one that holds its
+    frame's initial pose: the reference orientation is the frame's at the
+    initial state (the position stays the mission's)."""
+    import dataclasses
+
+    from eagle_mpc_tpu.dynamics import lie, rbd
+
+    q0 = np.asarray(traj.initial_state)[:traj.model.nq]
+
+    def six(con):
+        R = rbd.frame_placement(traj.model, q0, con.frame_id)[1]
+        return dataclasses.replace(con, type="ContactModel6D",
+                                   orientation=np.asarray(lie.rot_to_quat(R)))
+    return dataclasses.replace(traj, stages=tuple(
+        dataclasses.replace(st, contacts=tuple(six(c) for c in st.contacts))
+        for st in traj.stages))
+
+
+CONTACT_SOLVES = {"mb": ("monkey_bar", 40, (1, 15, 29, 35)),
+                  "ec": ("eagle_catch", 50, (31, 34, 50))}
+
+
+def contacts_fixture(missions):
+    """The contact layer's JAX values (module docstring)."""
+    import json
+    import subprocess
+
+    import jax
+    import jax.numpy as jnp
+
+    from eagle_mpc_tpu.config import specs
+    from eagle_mpc_tpu.dynamics import rbd
+    from eagle_mpc_tpu.dynamics.state import State
+    from eagle_mpc_tpu.ocp import problem as P
+    from eagle_mpc_tpu.solvers import fddp, sbfddp
+
+    euler = "IntegratedActionModelEuler"
+    load = lambda name: specs.load_trajectory(
+        f"{ROBOT}/trajectories/{name}.yaml", yaml_dir=missions)
+    host = lambda a: np.asarray(a)
+    out = {}
+
+    # the contact dynamics at random states
+    m = load("monkey_bar").model
+    fid = m.frame_id("flying_arm_3__gripper")
+    st = State(m.nq, m.nv)
+    rng = np.random.default_rng(5)
+    xs = np.stack([st.rand(rng) for _ in range(4)])
+    taus = np.random.default_rng(6).normal(size=(4, m.nv))
+    a0r = np.random.default_rng(7).normal(size=(4, 3))
+
+    def dyn(x, tau, a0_rand):
+        q, v = x[:m.nq], x[m.nq:]
+        J6 = rbd.frame_jacobian_local(m, q, fid)
+        drift = rbd.frame_accel_drift(m, q, v, fid)
+        vf = rbd.frame_velocity(m, q, v, fid)
+        a03 = drift[:3] + jnp.cross(vf[3:], vf[:3])
+        cfd = lambda J, a0, act: rbd.contact_fwd_dynamics(m, q, v, tau, J,
+                                                          a0, act)
+        a3, l3 = cfd(J6[:3], a03, jnp.ones(3))
+        a6, l6 = cfd(J6, drift, jnp.ones(6))
+        amix, lmix = cfd(J6, drift, jnp.array([1.0, 1, 1, 0, 0, 0]))
+        ain, lin = cfd(J6[:3], a0_rand, jnp.zeros(3))
+        return dict(J6=J6, drift=drift, vf=vf, a3=a3, lam3=l3, a6=a6,
+                    lam6=l6, amix=amix, lammix=lmix, ain=ain, lamin=lin,
+                    afree=rbd.fwd_dynamics(m, q, v, tau),
+                    ke=rbd.kinetic_energy(m, q, v),
+                    pe=rbd.potential_energy(m, q))
+    vals = jax.jit(jax.vmap(dyn))(xs, taus, a0r)
+    out.update(dyn_x=xs, dyn_tau=taus, dyn_a0=a0r, dyn_frame=fid)
+    out.update({f"dyn_{k}": host(v) for k, v in vals.items()})
+
+    def derivs(spec, params, xs_sol, us_sol, nodes):
+        f = jax.jit(lambda view, x, s: P.node_calc_diff(spec, view,
+                                                        params.glob, x, s))
+        got = [f(P.node_view(params.node, t), xs_sol[t], us_sol[t])
+               for t in nodes]
+        return {n: np.stack([host(getattr(g, n)) for g in got])
+                for n in P.NodeDerivatives._fields}
+
+    for key, (name, dt_ms, nodes) in CONTACT_SOLVES.items():
+        traj = load(name)
+        spec, params = P.from_trajectory(traj, dt_ms=dt_ms, use_squash=True,
+                                         integrator=euler)
+        solve = jax.jit(lambda p: sbfddp.solve(spec, p, maxiter=150))
+        r = solve(params)
+        out.update({f"{key}_{n}": host(getattr(r, n))
+                    for n in NAMES + ("smooth",)})
+        x0 = np.array(params.x0)
+        x0[:3] += 1e-12
+        x0[7:] += 1e-12
+        r_eps = solve(params._replace(x0=x0))
+        out.update({f"{key}_eps_{n}": host(getattr(r_eps, n)) for n in NAMES})
+        code = B64_F32.format(root=ROOT, missions=missions, dt=dt_ms,
+                              rel=f"{ROBOT}/trajectories/{name}.yaml",
+                              replicas=B64_REPLICAS)
+        env = dict(os.environ, JAX_ENABLE_X64="0", JAX_PLATFORMS="cpu")
+        res = subprocess.run([sys.executable, "-c", code], env=env,
+                             check=True, capture_output=True, text=True)
+        b64 = json.loads(res.stdout.strip().splitlines()[-1])
+        out.update({f"{key}_b64_{k}": np.asarray(v) for k, v in b64.items()})
+        out[f"{key}_nodes"] = np.array(nodes)
+        xs_sol, us_sol = np.asarray(r.xs), np.asarray(r.us)
+        out.update({f"{key}_cd_{n}": v for n, v in
+                    derivs(spec, params, xs_sol, us_sol, nodes).items()})
+        if key == "ec":
+            rng = np.random.default_rng(9)
+            xr = xs_sol + rng.normal(size=xs_sol.shape) * 0.05
+            xr[:, 3:7] /= np.linalg.norm(xr[:, 3:7], axis=-1, keepdims=True)
+            ur = us_sol + rng.normal(size=us_sol.shape) * 0.5
+            out["ecr_nodes"] = np.array(nodes[:2])
+            out["ecr_xs"], out["ecr_us"] = xr, ur
+            out.update({f"ecr_cd_{n}": v for n, v in derivs(
+                spec, params, xr, ur, nodes[:2]).items()})
+        if key == "mb":
+            spec6, params6 = P.from_trajectory(
+                contact_6d(traj), dt_ms=dt_ms, use_squash=True,
+                integrator=euler)
+            out["m6_nodes"] = np.array(nodes[:2])
+            out.update({f"m6_cd_{n}": v for n, v in derivs(
+                spec6, params6, xs_sol, us_sol, nodes[:2]).items()})
+
+    # three FDDP iterations of monkey_bar at dt 100
+    spec, params = P.from_trajectory(load("monkey_bar"), dt_ms=100,
+                                     use_squash=True, integrator=euler)
+    solver = fddp.SolverSettings(record_trace=True)
+    xs0, us0 = fddp.default_init(spec, params)
+    r = jax.jit(lambda p: fddp.solve_fddp(spec, solver, p, xs0, us0, 3,
+                                          1e-9))(params)
+    out.update({f"it_{n}": host(getattr(r, n)) for n in OFFLINE_NAMES})
+    out.update({f"it_trace_{n}": host(a) for n, a in
+                zip(fddp.IterTrace._fields, r.trace)})
+    return out
+
+
 def main(names):
     import jax
 
@@ -559,7 +764,21 @@ def main(names):
         "rail": RailMpc(mpc_params=mp, state_ref=ref, dt_ref=DT_REF),
     }
     os.makedirs(FIXTURES, exist_ok=True)
-    names = names or list(ctrls) + ["offline", "closed_loop"]
+    names = names or list(ctrls) + ["offline", "closed_loop", "contacts"]
+    if "contacts" in names:
+        path = os.path.join(FIXTURES, "torch_port_contacts.npz")
+        out = contacts_fixture(missions)
+        np.savez_compressed(path, **out)
+        print(f"wrote {path}")
+        for k in ("mb", "ec", "mb_eps", "ec_eps", "it"):
+            print(f"  {k}: iters {out[k + '_iters']} feasible "
+                  f"{out[k + '_feasible']} failed {out[k + '_failed']} cost "
+                  f"{out[k + '_cost']}")
+        for k in ("mb", "ec"):
+            print(f"  {k} f32 B=64: feasible {int(out[k + '_b64_feasible'].sum())}"
+                  f", failed {int(out[k + '_b64_failed'].sum())}; from the "
+                  f"round-off copies: feasible "
+                  f"{out[k + '_b64_spread_feasible'].sum(1).tolist()}")
     if "closed_loop" in names:
         path = os.path.join(FIXTURES, "torch_port_closed_loop.npz")
         out = closed_loop_fixture(missions, mp, traj, ref, sim)
@@ -585,7 +804,8 @@ def main(names):
             print(f"  {n}: iters {out[n + '_iters']} feasible "
                   f"{out[n + '_feasible']} cost {out[n + '_cost']}")
         print(f"  esc: xreg {out['esc_xreg']} failed {out['esc_failed']}")
-    for name in (n for n in names if n not in ("offline", "closed_loop")):
+    for name in (n for n in names
+                 if n not in ("offline", "closed_loop", "contacts")):
         ctrl = ctrls[name]
         out = tick_fixture(ctrl, sim, ref, mp, *TIMES[name], SEEDS[name])
         if name == "flagship":
