@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MPC ticks (Carrot, Weighted, Rail), its
-offline trajectory generation, its closed loop and its contact missions on
-one NVIDIA GPU.
+offline trajectory generation, its closed loop, its contact missions and
+its RK4 integrator on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -127,7 +127,31 @@ its seconds):
       states, and the plain version on the card is printed against the
       plain version on the host CPU beside the kernel;
    4. the kernels' and plain versions' times in float32 at B=1 at each
-      mission's solution, with each kernel's bound.
+      mission's solution, with each kernel's bound;
+9. rk4 (the RK4 integrator, crocoddyl's IntegratedActionModelRK4: four
+   dynamics passes a node step, the cost quadrature dt/6 (l0 + 2 l1 + 2 l2
+   + l3); K1's and K2's RK4 branch; the launch counts, their RK4 counts
+   and the count of plain node dynamics run on the card set to 0 just
+   before step 1's path and read after step 3: the plain count must be 0
+   and every K1 and K2 launch an RK4 one):
+   1. the carrot path of phase 3 with ``mpc.yaml``'s integration_method
+      switched to IntegratedActionModelRK4 (B=512, float32, t0=3500 ms,
+      one settle and 3 timed chunks): the same gates, tracking error
+      included, and the same report;
+   2. the float64 warm start and tick of that controller at B=2 against the
+      JAX package's fixture (tests/fixtures/torch_port_rk4.npz), as phase
+      5;
+   3. offline: iris hover with RK4 nodes at dt 60 ms, float64, B=1,
+      against the fixture (feasible, the same iterations, cost to rtol
+      1e-8); the flagship mission with RK4 nodes at dt 30 ms in float32 at
+      B=1 and at B=64 (x0 perturbed as in phase 6): every element finite
+      and feasible; solve ms and ms per iteration printed;
+   4. parity in float64: K1 through the kernel against the fixture's node
+      derivatives of the JAX package (the carrot's perturbed candidates at
+      B=2); then each kernel against its plain version at the end state of
+      step 1, as phase 4 (K1 also at |q| = 1 and 1 +- 1e-7), and K2 also
+      with the clip; the kernels' and plain versions' float32 times there,
+      with each kernel's bound.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -153,10 +177,15 @@ TICKS = 10
 # timed chunks, whether the tracking error is gated)
 PATHS = {"carrot": ("carrot", 3500.0, 1, 3, True),
          "weighted": ("weighted", 3200.0, 1, 3, False),
-         "rail": ("rail", 3200.0, 0, 1, True)}
+         "rail": ("rail", 3200.0, 0, 1, True),
+         "rk4": ("rk4", 3500.0, 1, 3, True)}
+MPC_PATHS = ("carrot", "weighted", "rail")   # phase 3; rk4 runs in phase 9
 FIXTURES = {"carrot": "torch_port_flagship.npz",
             "weighted": "torch_port_weighted.npz",
-            "rail": "torch_port_rail.npz"}
+            "rail": "torch_port_rail.npz",
+            "rk4": "torch_port_rk4.npz"}
+RK4 = "IntegratedActionModelRK4"
+RK4_PLAIN_REPS = 3     # phase 9: the plain versions take seconds a call
 BATCH = 512
 WARM_DEPTH = 30
 PARITY_RTOL = 1e-9     # float64 gate, relative to each output's max |entry|
@@ -206,10 +235,15 @@ def ptxas_summary(log):
 
     out, name = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(\w+?)I([fd])(Lb[01]E)?E",
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?)I([fd])((?:Lb[01]E)*)E",
                       line)
         if m:
-            path = {"Lb0E": ", free", "Lb1E": ", contact"}.get(m[3], "")
+            flags = re.findall(r"Lb([01])E", m[3])
+            path = ""
+            if flags:
+                path = ", contact" if flags[0] == "1" else ", free"
+            if len(flags) > 1 and flags[1] == "1" or m[1] == "node_rk4_kernel":
+                path += ", rk4"
             name = f"{m[1]}<{'float' if m[2] == 'f' else 'double'}{path}>"
         elif name and ("stack frame" in line or "Used" in line):
             out.append(f"ptxas {name}: {line.split(':')[-1].strip()}")
@@ -232,8 +266,11 @@ def say(*args):
 # ---------------------------------------------------------------------------
 
 def flagship(device, dtype, controller="carrot"):
-    """Controller (``carrot``, ``weighted`` or ``rail``), plant and offline
+    """Controller (``carrot``, ``weighted`` or ``rail``; ``rk4``: the carrot
+    with ``mpc.yaml``'s integration_method RK4), plant and offline
     reference of the bench workload."""
+    import dataclasses
+
     from eagle_mpc_tpu_torch.config import (load_mpc_params, load_ref,
                                             load_trajectory)
     from eagle_mpc_tpu_torch.mpc import CarrotMpc, RailMpc, WeightedMpc
@@ -246,7 +283,9 @@ def flagship(device, dtype, controller="carrot"):
     ref, kind = load_ref(ROBOT, MISSION, DT_REF, traj=traj)
     check(kind == "offline", "offline reference missing from missions/refs")
     kw = dict(mpc_params=mp, dt_ref=DT_REF, device=device, dtype=dtype)
+    rk4 = dict(kw, mpc_params=dataclasses.replace(mp, integration_method=RK4))
     ctrl = {"carrot": lambda: CarrotMpc(trajectory=traj, state_ref=ref, **kw),
+            "rk4": lambda: CarrotMpc(trajectory=traj, state_ref=ref, **rk4),
             "weighted": lambda: WeightedMpc(trajectory=traj, **kw),
             "rail": lambda: RailMpc(state_ref=ref, **kw)}[controller]()
     sim = AerialSimulator.from_platform(mp.model, mp.platform, DT_SIM,
@@ -389,8 +428,11 @@ def kernel_calls(ctrl, params, xs, us, feasible, reg, box=False):
     Fx'VxxFx, Fu'VxxFu and Fu'VxxFx per node; on a contact spec with nc
     constraint rows also K1's and K2's products with the KKT factors (K1
     per direction: dJm' lam, Jm M^-1 r, M^-1 Jm' dlam and the solve against
-    G's factor; K2 per step: M^-1 Jm', G, its factor and its solve). ``box``
-    runs K2 with the controls clipped to their bounds."""
+    G's factor; K2 per step: M^-1 Jm', G, its factor and its solve). On an
+    RK4 spec K1 does, per stage, the nz solves and the Gauss-Newton
+    products of every slot's full rows (n_res x nz), and K2 the
+    factorization and solves of each of its four stages. ``box`` runs K2
+    with the controls clipped to their bounds."""
     import torch
 
     from eagle_mpc_tpu_torch.ocp import costs as C
@@ -424,14 +466,19 @@ def kernel_calls(ctrl, params, xs, us, feasible, reg, box=False):
     nz, n_state = ndx + nu, sum(s.kind == C.STATE for s in spec.slots)
     nc = spec.nc_rows
     n_frame = sum(s.nr for s in spec.slots if s.kind in C.REF_DIMS)
+    n_res = sum(s.nr for s in spec.slots)
+    rk4 = spec.integrator == P.RK4
+    k1_ops = (4 * (2 * 2 * nv * nv * nz + 2 * n_res * nz * (nz + 1)) if rk4
+              else (2 * 2 * nv * nv * nz + 2 * 6 * 6 * 6 * n_state
+                    + 2 * n_frame * ndx * (ndx + 1) + 2 * 6 * 6 * nz
+                    + nz * (2 * 3 * nc * nv + 2 * 2 * nc * nc)))
+    step_ops = (nv ** 3 // 3 * 2 + 2 * 2 * nv * nv + 2 * 2 * nv * nv * nc
+                + 2 * nc * nc * nv + nc ** 3 // 3 * 2 + 2 * 2 * nc * nc)
     return {
         "node_linearization": (
             lambda: node_cuda.calc_diff_running(spec, params, xs, us),
             lambda: node_cuda.calc_diff_running_plain(spec, params, xs, us),
-            (xs[:, :T], us) + rows,
-            B * T * (2 * 2 * nv * nv * nz + 2 * 6 * 6 * 6 * n_state
-                     + 2 * n_frame * ndx * (ndx + 1) + 2 * 6 * 6 * nz
-                     + nz * (2 * 3 * nc * nv + 2 * 2 * nc * nc))),
+            (xs[:, :T], us) + rows, B * T * k1_ops),
         "riccati_backward": (
             lambda: riccati_cuda.backward(*bargs),
             lambda: riccati_cuda.backward_plain(*bargs), bargs,
@@ -441,9 +488,7 @@ def kernel_calls(ctrl, params, xs, us, feasible, reg, box=False):
             lambda: rollout_cuda.rollout(*rargs),
             lambda: rollout_cuda.rollout_plain(*rargs),
             (xs, us, k, K, fs, params.x0, alphas, keep) + rows,
-            B * A * T * (2 * nu * ndx + nv ** 3 // 3 * 2 + 2 * 2 * nv * nv
-                         + 2 * 2 * nv * nv * nc + 2 * nc * nc * nv
-                         + nc ** 3 // 3 * 2 + 2 * 2 * nc * nc)),
+            B * A * T * (2 * nu * ndx + (4 if rk4 else 1) * step_ops)),
     }
 
 
@@ -521,12 +566,13 @@ def quat_norm_parity(spec, params, xs, us):
     return out
 
 
-def phase_parity(device, state, controller="carrot"):
+def phase_parity(device, state, controller="carrot", plain_reps=TIMING_REPS):
     """Each kernel against its plain version at the end state of a path
-    (module docstring, phase 4); returns {kernel: its numbers}."""
+    (module docstring, phase 4; for ``rk4`` K2 with the clip too, phase 9);
+    returns {kernel: its numbers}."""
     import torch
 
-    results = {}
+    results, k1_f64 = {}, None
     for dtype in (torch.float64, torch.float32):
         ctrl = flagship(device, dtype, controller)[0]
         params, xs, us, feasible = parity_inputs(ctrl, state, device, dtype)
@@ -534,6 +580,11 @@ def phase_parity(device, state, controller="carrot"):
         # Cholesky implementations can agree to 1e-9 (at 1e-9 they differ
         # by cond(Quu) * eps ~ 1e-9 at these states)
         calls = kernel_calls(ctrl, params, xs, us, feasible, reg=1e-2)
+        if dtype == torch.float64 and controller == "rk4":
+            # K2's clip: the calls with box, for alpha_rollout alone
+            clip = kernel_calls(ctrl, params, xs, us, feasible, reg=1e-2,
+                                box=True)["alpha_rollout"]
+            calls["alpha_rollout (clip)"] = clip
         if dtype == torch.float64:
             for label, rel in quat_norm_parity(ctrl.spec, params, xs,
                                                us).items():
@@ -547,7 +598,7 @@ def phase_parity(device, state, controller="carrot"):
             r = results.setdefault(name, {})
             if dtype == torch.float32:
                 r["bound_ms"], r["bound_by"] = bound_ms(ins, got, flops)
-            if name == "alpha_rollout":
+            if name.startswith("alpha_rollout"):
                 # diverged lanes are chaotic and the solver only reads their
                 # flag: they must agree, and the values are compared on the
                 # lanes that did not diverge
@@ -562,10 +613,16 @@ def phase_parity(device, state, controller="carrot"):
             errs = [_err(w, g) for w, g in zip(want, got)]
             abs_err = max(e[0] for e in errs)
             rel_err = max(e[1] for e in errs)
+            worst = ""
+            if name == "node_linearization":
+                worst = (f", worst output "
+                         f"{want._fields[max(range(len(errs)), key=lambda i: errs[i][1])]}")
             if dtype == torch.float64:
                 r["max_abs_err"] = abs_err
+                if name == "node_linearization":
+                    k1_f64 = want
                 say(f"{controller} parity f64 {name}: max abs {abs_err:.3e}, "
-                    f"max rel {rel_err:.3e} (gate {PARITY_RTOL:g})")
+                    f"max rel {rel_err:.3e}{worst} (gate {PARITY_RTOL:g})")
                 check(rel_err <= PARITY_RTOL,
                       f"{controller} {name}: kernel differs from its plain "
                       f"version ({rel_err:.3e} > {PARITY_RTOL:g})")
@@ -579,13 +636,22 @@ def phase_parity(device, state, controller="carrot"):
                               f"differs from its plain version ({rel:.3e})")
             else:
                 say(f"{controller} parity f32 {name}: max abs {abs_err:.3e}, "
-                    f"max rel {rel_err:.3e}")
+                    f"max rel {rel_err:.3e}{worst}")
+                if name == "node_linearization":
+                    # both f32 versions against the f64 plain version: how
+                    # much of their difference is f32 round-off in each
+                    acc = [max(_err(w, g.double())[1] for w, g in zip(k1_f64, o))
+                           for o in (got, want)]
+                    say(f"{controller} f32 {name} against the f64 plain "
+                        f"version: kernel max rel {acc[0]:.3e}, plain "
+                        f"{acc[1]:.3e}")
                 r["ms"] = _time_ms(kern)
-                r["plain_ms"] = _time_ms(plain)
+                r["plain_ms"] = _time_ms(plain, reps=plain_reps)
                 say(f"{controller} time f32 B={BATCH} {name}: kernel "
                     f"{r['ms']:.3f} ms, "
-                    f"plain {r['plain_ms']:.3f} ms (median of {TIMING_REPS}), "
-                    f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+                    f"plain {r['plain_ms']:.3f} ms (medians of {TIMING_REPS} "
+                    f"and {plain_reps}), bound {r['bound_ms']:.4f} ms by "
+                    f"{r['bound_by']}")
     return results
 
 
@@ -640,17 +706,18 @@ def phase_reference(device, controller="carrot"):
 # ---------------------------------------------------------------------------
 
 def offline_problem(device, dtype, robot=ROBOT, mission=MISSION, dt_ms=DT_REF,
-                    use_squash=True):
+                    use_squash=True, integrator="IntegratedActionModelEuler"):
     """(spec, params batched at B = 1) of a mission, as the entry point
-    ``eagle_mpc_tpu_torch.trajectory`` builds them."""
+    ``eagle_mpc_tpu_torch.trajectory`` builds them (the integrator as
+    ``from_trajectory`` names it)."""
     from eagle_mpc_tpu_torch.config import load_trajectory
     from eagle_mpc_tpu_torch.ocp import problem as P
 
     traj = load_trajectory(f"{robot}/trajectories/{mission}.yaml",
                            yaml_dir=os.path.join(ROOT, "missions"))
     spec, params = P.from_trajectory(
-        traj, dt_ms=dt_ms, use_squash=use_squash,
-        integrator="IntegratedActionModelEuler", dtype=dtype, device=device)
+        traj, dt_ms=dt_ms, use_squash=use_squash, integrator=integrator,
+        dtype=dtype, device=device)
     return spec, P.expand_params(params, 1)
 
 
@@ -1323,6 +1390,125 @@ def phase_contacts(device):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the RK4 integrator
+# ---------------------------------------------------------------------------
+
+def _rk4_offline(device, mods):
+    """Step 3 of phase 9: the offline solves with RK4 nodes."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.solvers import sbfddp
+    from eagle_mpc_tpu_torch.trajectory import perturbed_x0
+
+    fx = np.load(os.path.join(ROOT, "tests", "fixtures", FIXTURES["rk4"]))
+    spec, params = offline_problem(device, torch.float64, "iris", "hover", 60,
+                                   integrator=RK4)
+    check(spec.integrator == P.RK4, "iris hover: not an RK4 spec")
+    res, sec = _solve_timed(lambda: sbfddp.solve(spec, params, maxiter=100))
+    it, cost = int(res.iters[0]), float(res.cost[0])
+    say(f"rk4 offline iris hover f64 B=1 T={spec.T}: {sec:.3f} s, iters {it} "
+        f"(JAX {int(fx['off_iters'])}), cost {cost!r} (JAX "
+        f"{float(fx['off_cost'])!r}), feasible {bool(res.feasible[0])}, final "
+        f"position {res.xs[0, -1, :3].cpu().numpy().round(6).tolist()}")
+    check(bool(res.feasible[0]) and not bool(res.failed[0]),
+          "rk4 offline iris hover f64: not feasible")
+    check(it == int(fx["off_iters"]), "rk4 offline iris hover f64: "
+          "iterations differ from the JAX solve")
+    check(abs(cost - float(fx["off_cost"])) <= 1e-8 * abs(float(fx["off_cost"])),
+          "rk4 offline iris hover f64: cost differs from the JAX solve")
+    spec, params = offline_problem(device, torch.float32, integrator=RK4)
+    sbfddp.solve(spec, params, maxiter=OFFLINE_MAXITER)
+    for B in (1, OFFLINE_BATCH):
+        pb = params
+        if B > 1:
+            pb = P.expand_params(P.map_params(lambda a: a[0], params), B)
+            pb = pb._replace(x0=perturbed_x0(params.x0[0], B, 0.05, 0))
+        res, sec = _solve_timed(lambda: sbfddp.solve(spec, pb,
+                                                     maxiter=OFFLINE_MAXITER))
+        it = int(res.iters.max())
+        say(f"rk4 offline flagship f32 B={B} T={spec.T}: {sec * 1e3:.1f} ms, "
+            f"iters {int(res.iters.min())}-{it}, {sec * 1e3 / max(it, 1):.2f} "
+            f"ms per iteration of the slowest element, feasible "
+            f"{int(res.feasible.sum())} of {B}, cost "
+            f"{float(res.cost.mean())!r} (mean)")
+        check(bool(res.feasible.all()) and bool(torch.isfinite(res.xs).all())
+              and bool(torch.isfinite(res.cost).all()),
+              f"rk4 offline flagship f32 B={B}: not every element feasible "
+              "and finite")
+
+
+def _rk4_jax_parity(device):
+    """Step 4 of phase 9, first part: K1 through the kernel against the JAX
+    package's node derivatives (the fixture's ``cd_*``), float64."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.ops import node_cuda
+
+    fx = np.load(os.path.join(ROOT, "tests", "fixtures", FIXTURES["rk4"]))
+    dtype = torch.float64
+    ctrl = flagship(device, dtype, "rk4")[0]
+    t = lambda a: torch.as_tensor(fx[a], device=device, dtype=dtype)
+    B = fx["cd_xs"].shape[0]
+    params = ctrl.update_problem(t("cd_t"), P.expand_params(
+        ctrl.params0, B)._replace(x0=t("cd_x0")))
+    got = node_cuda.calc_diff_running(ctrl.spec, params, t("cd_xs"), t("cd_us"))
+    torch.cuda.synchronize()
+    errs = {n: _err(t(f"cd_{n}"), getattr(got, n)) for n in got._fields}
+    rel = max(e[1] for e in errs.values())
+    lxu = float(got.Lxu.abs().max())
+    say(f"rk4 parity f64 node_linearization against the JAX package (B={B}, "
+        f"T={ctrl.spec.T}): max rel {rel:.3e} (gate {PARITY_RTOL:g}), max "
+        f"|Lxu| {lxu:.3e}")
+    check(rel <= PARITY_RTOL, f"rk4 node_linearization differs from the JAX "
+          f"package's node derivatives ({rel:.3e})")
+    check(lxu > 0.0, "rk4 node_linearization: Lxu is zero")
+    return max(e[0] for e in errs.values())
+
+
+def phase_rk4(device):
+    """The RK4 integrator (module docstring, phase 9). Returns (launches in
+    steps 1 to 3 per kernel, launches per timed tick of step 1, {kernel:
+    its numbers at step 1's end state})."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.ops import node_cuda, riccati_cuda, rollout_cuda
+
+    mods = {"node_linearization": node_cuda, "riccati_backward": riccati_cuda,
+            "alpha_rollout": rollout_cuda}
+    rk4_mods = {"node_linearization": node_cuda, "alpha_rollout": rollout_cuda}
+    P.PLAIN_ON_CARD = 0
+    for m in rk4_mods.values():
+        m.RK4_LAUNCHES = 0
+    # 1. the carrot path with RK4 nodes (it zeroes the launch counts)
+    launches, per_tick, end = phase_path(device, "rk4")
+    # 2. the f64 warm start and tick against the JAX package
+    phase_reference(device, "rk4")
+    # 3. the offline solves
+    _rk4_offline(device, mods)
+    torch.cuda.synchronize()
+    total = {n: m.LAUNCHES for n, m in mods.items()}
+    rk4 = {n: m.RK4_LAUNCHES for n, m in rk4_mods.items()}
+    say(f"rk4 launches in steps 1-3: {json.dumps(total)}; RK4 launches of K1 "
+        f"and K2: {json.dumps(rk4)}; plain node dynamics on the card: "
+        f"{P.PLAIN_ON_CARD}")
+    check(P.PLAIN_ON_CARD == 0, f"rk4: {P.PLAIN_ON_CARD} plain node dynamics "
+          "ran on the card")
+    for n in rk4_mods:
+        check(rk4[n] == total[n] > 0, f"rk4: {n}: {rk4[n]} RK4 launches of "
+              f"{total[n]}")
+    # 4. parity: against JAX, then against the plain versions
+    jax_err = _rk4_jax_parity(device)
+    stats = phase_parity(device, end, "rk4", plain_reps=RK4_PLAIN_REPS)
+    stats["node_linearization"]["jax_max_abs_err"] = jax_err
+    stats["alpha_rollout"]["clip_max_abs_err"] = stats.pop(
+        "alpha_rollout (clip)")["max_abs_err"]
+    return launches, per_tick, stats
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the bench workload
 # ---------------------------------------------------------------------------
 
@@ -1446,7 +1632,7 @@ def main():
     say(ptxas_summary(lib.with_suffix(".log").read_text()))
 
     paths, stats = {}, {}
-    for name in PATHS:
+    for name in MPC_PATHS:
         t_phase = time.time()
         paths[name] = phase_path(device, name)
         say(f"phase path {name}: {time.time() - t_phase:.1f} s")
@@ -1454,7 +1640,7 @@ def main():
         t_phase = time.time()
         stats[name] = phase_parity(device, paths[name][2], PATHS[name][0])
         say(f"phase parity {name}: {time.time() - t_phase:.1f} s")
-    for name in PATHS:
+    for name in MPC_PATHS:
         t_phase = time.time()
         phase_reference(device, PATHS[name][0])
         say(f"phase reference {name}: {time.time() - t_phase:.1f} s")
@@ -1467,6 +1653,9 @@ def main():
     t_phase = time.time()
     con_launches, con_stats = phase_contacts(device)
     say(f"phase contacts: {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    rk4_launches, rk4_per_tick, rk4_stats = phase_rk4(device)
+    say(f"phase rk4: {time.time() - t_phase:.1f} s")
     foreign = sorted(m for m in sys.modules
                      if m in ("jax", "eagle_mpc_tpu", "tools")
                      or m.startswith(("jax.", "eagle_mpc_tpu.", "tools.")))
@@ -1477,10 +1666,11 @@ def main():
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": paths["carrot"][0][name],
          "launches_per_tick": paths["carrot"][1][name],
-         "launches_per_path": dict({p: paths[p][0][name] for p in PATHS},
+         "launches_per_path": dict({p: paths[p][0][name] for p in MPC_PATHS},
                                    offline=off_launches[name],
                                    closed_loop=cl_launches[name],
-                                   contacts=con_launches[name]),
+                                   contacts=con_launches[name],
+                                   rk4=rk4_launches[name]),
          "max_abs_err": main_stats[name]["max_abs_err"],
          "ms": main_stats[name]["ms"], "plain_ms": main_stats[name]["plain_ms"],
          "bound_ms": main_stats[name]["bound_ms"],
@@ -1492,6 +1682,13 @@ def main():
          "closed_loop_max_abs_err": cl_stats[name]["max_abs_err"],
          "contacts": {CONTACT_MISSIONS[key][0]: con_stats[key][name]
                       for key in CONTACT_MISSIONS},
+         "rk4": dict({k: rk4_stats[name][k] for k in
+                      ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+                     launches=rk4_launches[name],
+                     launches_per_tick=rk4_per_tick[name],
+                     **{k: rk4_stats[name][k] for k in
+                        ("jax_max_abs_err", "clip_max_abs_err")
+                        if k in rk4_stats[name]}),
          **({"offline_box_max_abs_err": box_stats[name]["max_abs_err"],
              "slotless_max_abs_err": box_stats[name]["slotless_max_abs_err"]}
             if name in box_stats else {})}

@@ -1,8 +1,8 @@
 """YAML mission/controller parser, schema-compatible with eagle-mpc.
 
 The port's own copy of the JAX package's host-side parser (same keys, same
-``MissingValueException``, same defaulting), reduced to what the loaders in
-``specs`` call:
+``MissingValueException``, same defaulting, the same ``ParamsServer`` API
+with its codecs in ``converter``):
 
 - A file must start with ``trajectory:`` or ``mpc_controller:``.
 - The result is a flat ``key/path -> value`` map ("register"):
@@ -22,21 +22,18 @@ Values keep their native YAML types; ``ParamsServer`` converts on access.
 from __future__ import annotations
 
 import os
-import re
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import yaml
+
+from . import converter as cvt
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 #: Default search roots, overridable through the environment.
 YAML_DIR = os.environ.get("EAGLE_MPC_TPU_YAML_DIR", os.path.join(_REPO_ROOT, "missions"))
 ROBOT_DATA_DIR = os.environ.get("EAGLE_MPC_TPU_ROBOT_DIR", os.path.join(_REPO_ROOT, "robots"))
-
-# the dynamic Eigen-matrix form "[[rows,cols],v0,v1,...]"
-_RGX_DYN_MATRIX = re.compile(
-    r"\[\[((?:[0-9]+,?)+)\],((?:-?[0-9]*(?:\.[0-9]+)?(?:[eE][+-]?[0-9]+)?,?)+)\]")
 
 
 def get_yaml_path(path: str, yaml_dir: Optional[str] = None) -> str:
@@ -61,12 +58,22 @@ def _load_yaml(path: str) -> Any:
 
 
 class ParserYaml:
-    """Flatten a trajectory / mpc_controller YAML into a register map."""
+    """Flatten a trajectory / mpc_controller YAML into a register map.
+    ``path_root`` prefixes a relative ``file``; ``freely_parse`` walks the
+    whole document into the register, without the trajectory / controller
+    schema."""
 
-    def __init__(self, file: str, yaml_dir: Optional[str] = None):
+    def __init__(self, file: str, path_root: str = "", freely_parse: bool = False,
+                 yaml_dir: Optional[str] = None):
         self._params: Dict[str, Any] = {}
         self._yaml_dir = yaml_dir or YAML_DIR
-        self._parse(file)
+        path = file
+        if path_root and not os.path.isabs(file):
+            path = os.path.join(path_root, file)
+        if freely_parse:
+            self._walk(_load_yaml(path), "")
+        else:
+            self._parse(path)
 
     def get_params(self) -> Dict[str, Any]:
         return self._params
@@ -158,20 +165,6 @@ class ParserYaml:
             self._insert(prefix, node)
 
 
-def _dynamic_matrix_values(s: str) -> np.ndarray:
-    """Values of ``[[rows,cols],v0,v1,...]`` in the given order, checked
-    against rows x cols."""
-    m = _RGX_DYN_MATRIX.fullmatch(s)
-    if not m:
-        raise ValueError(f"Invalid string representation of a Matrix: {s}")
-    dims = [int(d) for d in m.group(1).split(",") if d != ""]
-    vals = np.asarray([float(v) for v in m.group(2).split(",") if v != ""],
-                      dtype=np.float64)
-    if len(dims) != 2 or dims[0] * dims[1] != vals.size:
-        raise ValueError(f"Matrix dimensions do not match its values: {s}")
-    return vals
-
-
 class ParamsServer:
     """Typed access over the flat register. Raises ``MissingValueException``
     on absent keys so callers can default with try/except, as the
@@ -179,6 +172,17 @@ class ParamsServer:
 
     def __init__(self, params: Dict[str, Any]):
         self._params = dict(params)
+
+    def add_param(self, key: str, value: Any):
+        """Register ``value`` under ``key`` unless the key has one."""
+        self._params.setdefault(key, value)
+
+    def has(self, key: str) -> bool:
+        return key in self._params
+
+    @property
+    def keys(self):
+        return sorted(self._params)
 
     def _get(self, key: str) -> Any:
         if key not in self._params:
@@ -206,10 +210,29 @@ class ParamsServer:
         v = self._get(key)
         if isinstance(v, str):
             s = v.replace(" ", "")
-            if s.startswith("[["):
-                return _dynamic_matrix_values(s)
+            if s.startswith("[["):   # the dynamic Eigen form: its values
+                return cvt.convert_matrix(s).ravel()
             v = yaml.safe_load(v)
         return np.asarray(v, dtype=np.float64)
+
+    def get_matrix(self, key: str) -> np.ndarray:
+        """The dynamic ``[[rows,cols],v...]`` form as a 2-D array, the flat
+        ``[v...]`` form (or a YAML list) as it is."""
+        v = self._get(key)
+        if isinstance(v, str):
+            return cvt.convert_matrix(v.replace(" ", ""))
+        return np.asarray(v, dtype=np.float64)
+
+    def get_map(self, key: str, conv=float) -> dict:
+        """``[{id:value},...]`` (or a YAML mapping) as a dict."""
+        v = self._get(key)
+        if isinstance(v, dict):
+            return {str(k): conv(val) for k, val in v.items()}
+        return cvt.convert_map(str(v), conv)
+
+    def get_pair(self, key: str, conv=float) -> tuple:
+        """``{identifier:value}`` as (identifier, value)."""
+        return cvt.convert_pair(str(self._get(key)), conv)
 
     def get_list(self, key: str) -> list:
         v = self._get(key)

@@ -1,9 +1,9 @@
 // Device-side model of one node: the free-flyer state manifold, the
 // multibody dynamics (tree kinematics, RNEA, CRBA, Cholesky), the contact
 // rows and the masked KKT solve of the constrained dynamics, the squash,
-// rotor allocation, the symplectic-Euler step, and the cost rows of the
-// STATE, CONTROL, operational-frame and friction-cone slots with their
-// activations.
+// rotor allocation, the symplectic-Euler and RK4 steps, and the cost rows
+// of the STATE, CONTROL, operational-frame and friction-cone slots with
+// their activations.
 //
 // Every function is a template on the scalar S (float or double) and on
 // the value type V (S, or Dual<S> for forward-mode tangents). Mirrors
@@ -16,7 +16,9 @@
 // group of threads of one warp splits the step (rollout.cu: 8 threads per
 // alpha lane; node.cu: the node's warp, for its primal). It runs the
 // pieces above it, which the per-thread code (K1's tangents and dual
-// columns) calls too.
+// columns) calls too. Its dynamics pass alone, coop_dam, is also an RK4
+// stage: RK4 runs it at four stage points and combines them with
+// rk4_stage.
 //
 // The larger functions are __noinline__. Fully inlined into the node
 // kernel (255 registers, a 12 KB frame per thread in float64), nvcc 12.8
@@ -59,6 +61,7 @@ enum {
 
 enum { EM_ACT_QUAD = 0, EM_ACT_WQUAD = 1, EM_ACT_QBARRIER = 2, EM_ACT_WQBARRIER = 3 };
 enum { EM_REVOLUTE = 0, EM_PRISMATIC = 1 };
+enum { EM_EULER = 0, EM_RK4 = 1 };
 
 // Gauss-Newton structure of a slot: CONTROL residuals are s - ref, the
 // identity on s; STATE and the frame slots depend on x alone; a friction
@@ -102,6 +105,7 @@ struct ModelDesc {
   int con_row[EM_MAX_CON];          // first constraint row of each contact
   int con_ref_off[EM_MAX_CON];      // offset of its reference in a node row
   int con_act_off;                  // offset of the contacts' activity in a node row
+  int integrator;                   // EM_EULER or EM_RK4
 };
 
 // whether a spec takes the kernels' contact path: it has contacts or a
@@ -751,6 +755,32 @@ __device__ __noinline__ void euler_next(const ModelDesc& d, const V* x, const V*
   integrate<S, V>(d, x, dx, xn);
 }
 
+// RK4 on the state manifold (crocoddyl's IAM RK4, problem._stage_points):
+// stage i = 0..3 at y_i with the acceleration a_i gives k_i = [v(y_i), a_i];
+// the next stage point is y_{i+1} = x (+) k_i h_i (h = dt/2, dt/2, dt) and
+// after stage 3 xnext = x (+) (k0 + 2 k1 + 2 k2 + k3) dt/6. ksum carries
+// that sum; ynext (which may be y) gets y_{i+1}, or xnext after stage 3.
+// The running cost's quadrature coefficient of stage i is rk4_coeff.
+__host__ __device__ inline double rk4_coeff(const ModelDesc& d, int i) {
+  return i == 0 || i == 3 ? d.dt / 6 : d.dt / 3;
+}
+
+template <class S>
+__device__ __noinline__ void rk4_stage(const ModelDesc& d, int i, const S* x, const S* y,
+                                       const S* a, S* ksum, S* ynext) {
+  const int nv = d.nv, ndx = 2 * nv;
+  S k[EM_MAX_NDX];
+  for (int c = 0; c < nv; ++c) {
+    k[c] = y[d.nq + c];
+    k[nv + c] = a[c];
+  }
+  for (int c = 0; c < ndx; ++c)
+    ksum[c] = i == 0 ? k[c] : (i == 3 ? ksum[c] + k[c] : ksum[c] + S(2) * k[c]);
+  const S h = i == 3 ? S(d.dt / 6) : (i == 2 ? S(d.dt) : S(d.dt / 2));
+  for (int c = 0; c < ndx; ++c) k[c] = (i == 3 ? ksum[c] : k[c]) * h;
+  integrate<S, S>(d, x, k, ynext);
+}
+
 // ---------------------------------------------------------------------------
 // operational frames
 // ---------------------------------------------------------------------------
@@ -1049,24 +1079,25 @@ __device__ __noinline__ void coop_tree_up(const ModelDesc& d, CoopNode<S>& W) {
   for (int i = 0; i < d.nv; ++i) W.rhs[i] = W.rhs[i] - W.tmp[i];
 }
 
-// a = (L L^T)^-1 rhs, then the Euler step from xt into xc
+// the weighted slot costs of a pass, summed in slot order
 template <class S>
-__device__ __noinline__ void coop_solve_and_step(const ModelDesc& d, CoopNode<S>& W) {
-  chol_solve(W.M, d.nv, EM_MAX_NV, W.rhs);
-  euler_next<S, S>(d, W.xt, W.rhs, W.xc, W.inc);
+__device__ __forceinline__ S coop_cost_sum(const ModelDesc& d, const CoopNode<S>& W) {
+  S total = S(0);
+  for (int k = 0; k < d.n_slots; ++k) total = total + W.ck[k];
+  return total;
 }
 
-// the cooperative node step: (xt, usq) -> xc, leaving the acceleration in
-// rhs and the Cholesky factor of M in M (and, with contacts, the rows, the
-// multipliers and G's factor in C). np: the node parameter row (a contact
-// spec reads its contacts' activity and references there). Given c_out,
-// also the running cost at (xt, u) into *c_out: a slot per thread on the
-// threads that the chain down the tree leaves idle, summed in slot order;
-// a friction cone by the first thread once the forces are known.
+// the cooperative dynamics at (xt, usq): the acceleration into rhs and the
+// Cholesky factor of M into M (and, with contacts, the rows, the
+// multipliers and G's factor into C). np: the node parameter row (a
+// contact spec reads its contacts' activity and references there). With
+// cost, also each slot's weighted cost at (xt, u) into ck: a slot per
+// thread on the threads that the chain down the tree leaves idle; a
+// friction cone by the first thread once the forces are known.
 template <class S, int G, bool CON>
-__device__ __forceinline__ void coop_dyn_next(const ModelDesc& d, int l, CoopNode<S>& W,
-                                              CoopContact<S>* C, const S* np = nullptr,
-                                              const S* gp = nullptr, S* c_out = nullptr) {
+__device__ __forceinline__ void coop_dam(const ModelDesc& d, int l, CoopNode<S>& W,
+                                         CoopContact<S>* C, const S* np, const S* gp,
+                                         bool cost) {
   const int nv = d.nv, nj = d.nj;
   for (int r = l; r < nv; r += G) W.rhs[r] = alloc_row<S, S>(d, r, W.usq);
   for (int j = l; j < nj; j += G)
@@ -1074,7 +1105,7 @@ __device__ __forceinline__ void coop_dyn_next(const ModelDesc& d, int l, CoopNod
   __syncwarp();
   if (l == 0)
     coop_tree_down<S>(d, W);
-  else if (c_out && l <= EM_COST_ROWS)
+  else if (cost && l <= EM_COST_ROWS)
     for (int k = l - 1; k < d.n_slots; k += min(G - 1, EM_COST_ROWS))
       if (!CON || d.slot_kind[k] != EM_KIND_FRICTION_CONE)
         W.ck[k] = slot_cost<S>(d, k, W.xt, W.u, np, gp, W.res[l - 1]);
@@ -1156,18 +1187,26 @@ __device__ __forceinline__ void coop_dyn_next(const ModelDesc& d, int l, CoopNod
     __syncwarp();
     if (l == 0) {
       contact_solve<S>(d, W, *C);
-      euler_next<S, S>(d, W.xt, W.rhs, W.xc, W.inc);
-      if (c_out)
+      if (cost)
         for (int k = 0; k < d.n_slots; ++k)
           if (d.slot_kind[k] == EM_KIND_FRICTION_CONE)
             W.ck[k] = cone_cost<S>(d, k, C->lam, C->Rf, np, gp, W.tmp);
     }
   } else if (l == 0) {
-    coop_solve_and_step<S>(d, W);
+    chol_solve(W.M, nv, EM_MAX_NV, W.rhs);
   }
-  if (l == 0 && c_out) {
-    S total = S(0);
-    for (int k = 0; k < d.n_slots; ++k) total = total + W.ck[k];
-    *c_out = S(d.dt) * total;
+}
+
+// the cooperative node step: coop_dam, then the Euler step from xt into
+// xc on the first thread. Given c_out, also the running cost dt l(xt, u)
+// into *c_out.
+template <class S, int G, bool CON>
+__device__ __forceinline__ void coop_dyn_next(const ModelDesc& d, int l, CoopNode<S>& W,
+                                              CoopContact<S>* C, const S* np = nullptr,
+                                              const S* gp = nullptr, S* c_out = nullptr) {
+  coop_dam<S, G, CON>(d, l, W, C, np, gp, c_out != nullptr);
+  if (l == 0) {
+    euler_next<S, S>(d, W.xt, W.rhs, W.xc, W.inc);
+    if (c_out) *c_out = S(d.dt) * coop_cost_sum(d, W);
   }
 }

@@ -57,6 +57,9 @@
 //    at x^ (the gravity shift) and the contact rows at x^ (contact_hat).
 // 5. Every output leaves as contiguous runs: consecutive lanes write
 //    consecutive entries (a row of Fx / Fu at a time).
+// 7. An RK4 spec (free flight) runs a kernel of its own, node_rk4_kernel
+//    (below): the stage tangents carried through the RK4 chain, full rows
+//    at every stage point.
 //
 // What bounds it on an H100: latency. A node is a chain of about 50
 // barrier phases in one warp (the cooperative primal's CRBA and Cholesky,
@@ -198,13 +201,30 @@ __device__ __forceinline__ void tan_force_to_parent(const S* p, const S* R, cons
   }
 }
 
-// out = -d RNEA(x (+) t e_j, a)/dt at t = 0 for a state direction j < ndx,
-// a held. Tangent-only forward mode: W holds the primal (the kinematics,
-// the body accelerations and the subtree forces of RNEA(x, a)), which is
-// read, not recomputed.
+// a state tangent direction for rnea_tangent: the unit direction e_j
+// (component c is 1 at c == j), or an arbitrary tangent dy (RK4's stage
+// tangents); rot: whether it may turn the base
 template <class S>
+struct UnitDir {
+  int j;
+  __device__ __forceinline__ S operator()(int c) const { return S(j == c ? 1 : 0); }
+  __device__ __forceinline__ bool rot() const { return j >= 3 && j < 6; }
+};
+
+template <class S>
+struct TangentDir {
+  const S* dy;
+  __device__ __forceinline__ S operator()(int c) const { return dy[c]; }
+  __device__ __forceinline__ bool rot() const { return true; }
+};
+
+// out = -d RNEA(x (+) t e, a)/dt at t = 0 for a state tangent direction e
+// (Dir), a held. Tangent-only forward mode: W holds the primal (the
+// kinematics, the body accelerations and the subtree forces of RNEA(x, a)),
+// which is read, not recomputed.
+template <class S, class Dir>
 __device__ __noinline__ void rnea_tangent(const ModelDesc& d, const CoopNode<S>& W, const S* qh,
-                                          int j, S* out) {
+                                          Dir e, S* out) {
   const int nq = d.nq, nv = d.nv, nj = d.nj;
   S dvel[EM_MAX_BODIES][6], dacc[EM_MAX_BODIES][6], dF[EM_MAX_BODIES][6];
   S dps[EM_MAX_BODIES][3], dRs[EM_MAX_BODIES][9];
@@ -212,21 +232,21 @@ __device__ __noinline__ void rnea_tangent(const ModelDesc& d, const CoopNode<S>&
   // direction R -> R exp([t e]x), gravity in the base g = R^T g_w moves by
   // g x e, with R that of the normalized quaternion qh (x (+) z normalizes)
   for (int i = 0; i < 6; ++i) {
-    dvel[0][i] = S(j == nv + i ? 1 : 0);
+    dvel[0][i] = e(nv + i);
     dacc[0][i] = S(0);
   }
-  if (j >= 3 && j < 6) {
-    S gw[3] = {S(0), S(0), S(d.gravity)}, g[3], e[3];
+  if (e.rot()) {
+    S gw[3] = {S(0), S(0), S(d.gravity)}, g[3], er[3];
     quat_rotate_inv<S, S>(qh, gw, g);
-    for (int i = 0; i < 3; ++i) e[i] = S(j - 3 == i ? 1 : 0);
-    cross3(g, e, dacc[0]);
+    for (int i = 0; i < 3; ++i) er[i] = e(3 + i);
+    cross3(g, er, dacc[0]);
   }
   for (int jj = 0; jj < nj; ++jj) {
     const int b = jj + 1, par = d.parent[jj];
     const S* p = W.k.p[b];
     const S* R = W.k.R[b];
-    const S dq = S(j == 6 + jj ? 1 : 0);
-    const S dv = S(j == nv + 6 + jj ? 1 : 0);
+    const S dq = e(6 + jj);
+    const S dv = e(nv + 6 + jj);
     S* dp = dps[b];
     S* dR = dRs[b];
     if (d.joint_type[jj] == EM_REVOLUTE) {
@@ -601,7 +621,7 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
   for (int j = lane; j < nz; j += 32) {
     S* daj = DA + j * nv;
     if (j < ndx)
-      rnea_tangent<S>(d, W, xh + 3, j, daj);
+      rnea_tangent<S>(d, W, xh + 3, UnitDir<S>{j}, daj);
     else
       control_tangent<S>(d, W, gp, j - ndx, daj);
     if constexpr (CON)
@@ -766,11 +786,323 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1 on an RK4 spec (free flight)
+// ---------------------------------------------------------------------------
+//
+// The outputs are the derivatives of problem.node_calc_diff's RK4 rows
+// [xnext (-) xnext0, r(y0), r(y1), r(y2), r(y3)] over z = (dx, ds). The
+// residuals at y1..y3 depend on s through a0..a2, so Lxu is not zero and
+// no slot structure holds past y0: every stage takes full residual rows
+// over all nz directions.
+// 1. xnext0, at x as the plain version's: the warp runs the four stage
+//    passes (coop_dam) and the RK4 combination (rk4_stage).
+// 2. The linearization at x^ = x (+) 0 (the quaternion normalized), stage
+//    by stage, with the stage's primal and tangents in the warp's one
+//    working set:
+//    - the warp's dynamics pass at y_i, then RNEA(y_i, a_i) for the
+//      tangents, and the first lane's y_{i+1};
+//    - a direction j per lane carries the stage tangent dy_i: da_i =
+//      M_i^-1 (dtau/dz_j - d RNEA(y_i (+) t dy_i, a_i)) (rnea_tangent along
+//      dy_i, the primal's factor of M_i), dk_i = [dy_i's velocity, da_i];
+//      the slots' rows at y_i along (dy_i, ds_j), one dual evaluation per
+//      slot (rk4_slot_column), and dy_{i+1} = d/dt (x (+) t e_j) (+) h_i
+//      (k_i + t dk_i) (-) y_{i+1}, one dual evaluation (rk4_chain_tangent);
+//    - the stage's activations (weighted by its quadrature coefficient),
+//      and its Gauss-Newton terms added to g and H.
+// 3. [Fx Fu] column j = d/dt (x (+) t e_j) (+) (w + t dw) (-) xnext0, w the
+//    k-sum times dt/6 at x^ and dw its tangent: one dual evaluation a lane.
+// A block takes as many nodes (one warp each, up to K1_NODES) as the
+// device's shared memory admits; the launcher sizes it.
+
+// offsets (in scalars) of one warp's shared arrays on an RK4 spec, after
+// its CoopNode
+struct K1Rk4Layout {
+  int J;      // [n_res][nz] the residual rows' Jacobian at the current stage
+  int H;      // [nz][nz] the Gauss-Newton Hessian, summed over the stages
+  int g;      // [nz] the gradient, summed over the stages
+  int DY;     // [nz][ndx] each direction's stage tangent dy_i
+  int DW;     // [nz][ndx] each direction's tangent of the k-sum
+  int DT;     // [nz][nv] dtau / dz_j (zero for a state direction)
+  int xh;     // [nx] x^
+  int y;      // [nx] the next stage point
+  int ks;     // [ndx] the k-sum
+  int val;    // [n_res] residual values at the current stage
+  int act;    // [n_res] each row's share of 2 a
+  int wA;     // [n_res] c_i w A_r
+  int wAA;    // [n_res] c_i w A_rr
+  int total;
+};
+
+__host__ __device__ inline K1Rk4Layout k1_rk4_layout(const ModelDesc& d) {
+  const int nv = d.nv, ndx = 2 * nv, nz = ndx + d.nu, n_res = d.n_res;
+  K1Rk4Layout o;
+  int at = 0;
+  o.J = at;   at += n_res * nz;
+  o.H = at;   at += nz * nz;
+  o.g = at;   at += nz;
+  o.DY = at;  at += nz * ndx;
+  o.DW = at;  at += nz * ndx;
+  o.DT = at;  at += nz * nv;
+  o.xh = at;  at += d.nq + nv;
+  o.y = at;   at += d.nq + nv;
+  o.ks = at;  at += ndx;
+  o.val = at; at += n_res;
+  o.act = at; at += n_res;
+  o.wA = at;  at += n_res;
+  o.wAA = at; at += n_res;
+  o.total = at;
+  return o;
+}
+
+template <class S>
+__host__ __device__ inline size_t k1_rk4_node_bytes(const ModelDesc& d) {
+  return sizeof(CoopNode<S>) + sizeof(S) * (size_t)k1_rk4_layout(d).total;
+}
+
+// out = d/dt [((x (+) t e_j) (+) (w + t dw)) (-) target] at t = 0 (ndx
+// rows): e_j is no direction for j >= ndx (a control direction), and
+// without w the second step is left out
+template <class S>
+__device__ __noinline__ void rk4_chain_tangent(const ModelDesc& d, const S* x, int j, const S* w,
+                                               const S* dw, S h, const S* target, S* out) {
+  typedef Dual<S> D;
+  const int nx = d.nq + d.nv, ndx = 2 * d.nv;
+  D xd[EM_MAX_NX], z[EM_MAX_NDX], y[EM_MAX_NX];
+  for (int c = 0; c < nx; ++c) xd[c] = D(x[c]);
+  for (int c = 0; c < ndx; ++c) z[c] = D(S(0), S(c == j ? 1 : 0));
+  integrate<S, D>(d, xd, z, y);
+  if (w) {
+    for (int c = 0; c < ndx; ++c) z[c] = D(w[c] * h, dw[c] * h);
+    integrate<S, D>(d, y, z, xd);
+  } else {
+    for (int c = 0; c < nx; ++c) xd[c] = y[c];
+  }
+  for (int c = 0; c < nx; ++c) y[c] = D(target[c]);
+  state_diff<S, D>(d, y, xd, z);
+  for (int c = 0; c < ndx; ++c) out[c] = z[c].d;
+}
+
+// the rows of slot k at (y (+) t dy, s + t e_ju) differentiated at t = 0
+// into col[r * stride] (ju < 0: no control direction); their values into
+// vals when given
+template <class S>
+__device__ __noinline__ void rk4_slot_column(const ModelDesc& d, const S* y, const S* s, int k,
+                                             const S* dy, int ju, const S* np, S* col,
+                                             int stride, S* vals) {
+  typedef Dual<S> D;
+  const int nx = d.nq + d.nv, ndx = 2 * d.nv;
+  D yd[EM_MAX_NX], z[EM_MAX_NDX], yy[EM_MAX_NX], sd[EM_MAX_NU], r[EM_MAX_NR];
+  for (int c = 0; c < nx; ++c) yd[c] = D(y[c]);
+  for (int c = 0; c < ndx; ++c) z[c] = D(S(0), dy[c]);
+  integrate<S, D>(d, yd, z, yy);
+  for (int c = 0; c < d.nu; ++c) sd[c] = D(s[c], S(c == ju ? 1 : 0));
+  slot_residual<S, D>(d, k, yy, sd, np, r);
+  for (int q = 0; q < d.slot_nr[k]; ++q) col[q * stride] = r[q].d;
+  if (vals)
+    for (int q = 0; q < d.slot_nr[k]; ++q) vals[q] = r[q].v;
+}
+
+// the stage tangents of direction j at stage i (the primal at y_i in W, k_i
+// = [v(y_i), a_i]): da_i, dk_i into the k-sum's tangent, the residual rows'
+// column j at y_i into J (and, for j = 0, their values), and dy_{i+1}
+template <class S>
+__device__ __noinline__ void rk4_direction(const ModelDesc& d, const CoopNode<S>& W, int i,
+                                           int j, const S* x, const S* ynext, const S* np,
+                                           S* dy, S* dw, const S* dtau, S* J, int nz,
+                                           S* val) {
+  const int nv = d.nv, ndx = 2 * nv;
+  S da[EM_MAX_NV], k[EM_MAX_NDX], dk[EM_MAX_NDX];
+  rnea_tangent<S>(d, W, W.xt + 3, TangentDir<S>{dy}, da);
+  for (int c = 0; c < nv; ++c) da[c] = da[c] + dtau[c];
+  chol_solve(W.M, nv, EM_MAX_NV, da);
+  for (int c = 0; c < nv; ++c) {
+    k[c] = W.xt[d.nq + c];
+    k[nv + c] = W.rhs[c];
+    dk[c] = dy[nv + c];
+    dk[nv + c] = da[c];
+  }
+  for (int c = 0; c < ndx; ++c)
+    dw[c] = i == 0 ? dk[c] : (i == 3 ? dw[c] + dk[c] : dw[c] + S(2) * dk[c]);
+  const int ju = j - ndx;
+  for (int kk = 0, row = 0; kk < d.n_slots; row += d.slot_nr[kk], ++kk)
+    rk4_slot_column<S>(d, W.xt, W.u, kk, dy, ju, np, J + row * nz + j, nz,
+                       j == 0 ? val + row : nullptr);
+  if (i < 3)
+    rk4_chain_tangent<S>(d, x, j, k, dk, i == 2 ? S(d.dt) : S(d.dt / 2), ynext, dy);
+}
+
+template <class S>
+__global__ void __launch_bounds__(32 * K1_NODES)
+node_rk4_kernel(const ModelDesc* __restrict__ desc, int N, int T, int nodes,
+                const S* __restrict__ x, const S* __restrict__ s,
+                const S* __restrict__ node_par, const S* __restrict__ glob_par,
+                S* cost, S* xnext, S* Fx, S* Fu, S* Lx, S* Lu, S* Lxx, S* Lxu, S* Luu) {
+  const ModelDesc& d = *desc;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = blockIdx.x * nodes + warp;
+  if (n >= N) return;   // whole warps only: nothing below syncs the block
+  const int nv = d.nv, nx = d.nq + nv, ndx = 2 * nv, nu = d.nu, nz = ndx + nu;
+  const int K = d.n_slots, n_res = d.n_res;
+  const K1Rk4Layout lay = k1_rk4_layout(d);
+  extern __shared__ unsigned char smem_raw[];
+  CoopNode<S>& W = *reinterpret_cast<CoopNode<S>*>(smem_raw + warp * k1_rk4_node_bytes<S>(d));
+  S* sm = reinterpret_cast<S*>(&W + 1);
+  S* J = sm + lay.J;
+  S* H = sm + lay.H;
+  S* g = sm + lay.g;
+  S* DY = sm + lay.DY;
+  S* DW = sm + lay.DW;
+  S* DT = sm + lay.DT;
+  S* xh = sm + lay.xh;
+  S* y = sm + lay.y;
+  S* ks = sm + lay.ks;
+  S* val = sm + lay.val;
+  S* act = sm + lay.act;
+  S* wA = sm + lay.wA;
+  S* wAA = sm + lay.wAA;
+
+  const size_t nn = (size_t)n;
+  const S* xg = x + nn * nx;
+  const S* np = node_par + nn * d.node_dim;
+  const S* gp = glob_par + (size_t)(n / T) * d.glob_dim;
+  for (int i = lane; i < nx; i += 32) W.xt[i] = xg[i];
+  for (int i = lane; i < nu; i += 32) {
+    W.u[i] = s[nn * nu + i];
+    W.usq[i] = control_u<S, S>(d, i, W.u[i], gp);
+  }
+  __syncwarp();
+
+  // 1. xnext0 at x into W.xc
+  for (int i = 0; i < 4; ++i) {
+    coop_dam<S, 32, false>(d, lane, W, nullptr, np, gp, false);
+    if (lane == 0) rk4_stage<S>(d, i, xg, W.xt, W.rhs, ks, i < 3 ? W.xt : W.xc);
+    __syncwarp();
+  }
+
+  // 2. the stages at x^: dy_0 = d/dt (x (+) t e_j) (-) x^, dtau/dz_j
+  if (lane == 0) {
+    for (int i = 0; i < nx; ++i) xh[i] = xg[i];
+    quat_normalize(xh + 3);
+  }
+  __syncwarp();
+  for (int i = lane; i < nx; i += 32) W.xt[i] = xh[i];
+  for (int e = lane; e < nz + nz * nz; e += 32) (e < nz ? g[e] : H[e - nz]) = S(0);
+  for (int j = lane; j < nz; j += 32) {
+    if (j < ndx) {
+      rk4_chain_tangent<S>(d, xg, j, nullptr, nullptr, S(0), xh, DY + j * ndx);
+      for (int c = 0; c < nv; ++c) DT[j * nv + c] = S(0);
+    } else {
+      for (int c = 0; c < ndx; ++c) DY[j * ndx + c] = S(0);
+      control_tangent<S>(d, W, gp, j - ndx, DT + j * nv);
+    }
+  }
+  __syncwarp();
+  S c_total = S(0);
+  for (int i = 0; i < 4; ++i) {
+    coop_dam<S, 32, false>(d, lane, W, nullptr, np, gp, false);
+    __syncwarp();
+    if (lane == 0) rnea_forward<S, S>(d, W.xt, W.rhs, W.k, W.acc);
+    __syncwarp();
+    for (int b = lane; b <= d.nj; b += 32) body_force<S, S>(d, b, W.acc[b], W.k.vel[b], W.force[b]);
+    __syncwarp();
+    if (lane == 0) {
+      rnea_backward<S, S>(d, W.k, W.force, W.tmp);
+      rk4_stage<S>(d, i, xh, W.xt, W.rhs, ks, y);
+    }
+    __syncwarp();
+    for (int j = lane; j < nz; j += 32)
+      rk4_direction<S>(d, W, i, j, xg, y, np, DY + j * ndx, DW + j * ndx, DT + j * nv, J, nz,
+                       val);
+    __syncwarp();
+    // the stage's activations, a residual row per lane, weighted c_i w_k
+    const S ci = S(rk4_coeff(d, i));
+    for (int r = lane; r < n_res; r += 32) {
+      int k = 0, q = r;
+      while (q >= d.slot_nr[k]) q -= d.slot_nr[k++];
+      const S* w = gp + d.slot_glob_off[k];
+      const int nr = d.slot_nr[k];
+      const S wk = ci * np[k] * np[K + k];
+      S Ar, Arr;
+      act[r] = activation_row<S>(d.slot_act[k], val[r], w[q], w[nr + q], w[2 * nr + q], Ar, Arr);
+      wA[r] = wk * Ar;
+      wAA[r] = wk * Arr;
+    }
+    __syncwarp();
+    if (lane == 0)
+      for (int k = 0, row = 0; k < K; row += d.slot_nr[k], ++k) {
+        S a = S(0);
+        for (int q = 0; q < d.slot_nr[k]; ++q) a = a + act[row + q];
+        c_total = c_total + (ci * np[k] * np[K + k]) * (S(0.5) * a);
+      }
+    // g += J^T (c w A_r), H += J^T diag(c w A_rr) J
+    for (int e = lane; e < nz + nz * nz; e += 32) {
+      const bool grad = e < nz;
+      const int a = grad ? e : (e - nz) / nz, b = grad ? 0 : (e - nz) % nz;
+      S h = S(0);
+      for (int r = 0; r < n_res; ++r)
+        h = grad ? h + J[r * nz + a] * wA[r] : h + J[r * nz + a] * (wAA[r] * J[r * nz + b]);
+      if (grad)
+        g[a] = g[a] + h;
+      else
+        H[e - nz] = H[e - nz] + h;
+    }
+    __syncwarp();
+    if (i < 3)
+      for (int c = lane; c < nx; c += 32) W.xt[c] = y[c];
+    __syncwarp();
+  }
+
+  // 3. [Fx Fu] column j, a row at a time (consecutive lanes, consecutive
+  // entries); the other outputs, each a contiguous run per node
+  for (int j = lane; j < nz; j += 32) {
+    S col[EM_MAX_NDX];
+    rk4_chain_tangent<S>(d, xg, j, ks, DW + j * ndx, S(d.dt / 6), W.xc, col);
+    for (int r = 0; r < ndx; ++r) {
+      if (j < ndx)
+        Fx[(nn * ndx + r) * ndx + j] = col[r];
+      else
+        Fu[(nn * ndx + r) * nu + j - ndx] = col[r];
+    }
+  }
+  if (lane == 0) cost[nn] = c_total;
+  for (int i = lane; i < nx; i += 32) xnext[nn * nx + i] = W.xc[i];
+  for (int i = lane; i < ndx; i += 32) Lx[nn * ndx + i] = g[i];
+  for (int i = lane; i < nu; i += 32) Lu[nn * nu + i] = g[ndx + i];
+  for (int e = lane; e < ndx * ndx; e += 32) Lxx[nn * ndx * ndx + e] = H[(e / ndx) * nz + e % ndx];
+  for (int e = lane; e < ndx * nu; e += 32) Lxu[nn * ndx * nu + e] = H[(e / nu) * nz + ndx + e % nu];
+  for (int e = lane; e < nu * nu; e += 32)
+    Luu[nn * nu * nu + e] = H[(ndx + e / nu) * nz + ndx + e % nu];
+}
+
 template <class S>
 static int launch_node(const void* desc, const ModelDesc* host_desc, int N, int T, const S* x, const S* s,
                        const S* node_par, const S* glob_par, S* cost, S* xnext,
                        S* Fx, S* Fu, S* Lx, S* Lu, S* Lxx, S* Lxu, S* Luu,
                        void* stream) {
+  if (host_desc->integrator == EM_RK4) {
+    if (contact_path(*host_desc)) return (int)cudaErrorInvalidValue;   // not instantiated
+    int dev = 0, limit = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return (int)e;
+    const size_t per_node = k1_rk4_node_bytes<S>(*host_desc);
+    int nodes = K1_NODES;
+    while (nodes > 0 && nodes * per_node > (size_t)limit) --nodes;
+    if (nodes == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = nodes * per_node;
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(&node_rk4_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    if (N > 0)
+      node_rk4_kernel<S><<<(N + nodes - 1) / nodes, 32 * nodes, smem, (cudaStream_t)stream>>>(
+          (const ModelDesc*)desc, N, T, nodes, x, s, node_par, glob_par, cost, xnext, Fx, Fu,
+          Lx, Lu, Lxx, Lxu, Luu);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = k1_smem_bytes<S>(k1_layout(*host_desc));
   const auto kernel = contact_path(*host_desc) ? &node_kernel<S, true> : &node_kernel<S, false>;
   if (smem > 48 * 1024) {

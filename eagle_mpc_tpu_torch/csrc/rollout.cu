@@ -8,8 +8,10 @@
 //   x_try = keep ? x (+) f_t (alpha - 1) : x       (gap contraction)
 //   u_try = u_t - alpha k_t - K_t (x_t^-1 x_try)   (feedback law; with box,
 //           clipped to [s_lb, s_ub], the Box-DDP rollout)
-//   x     = dyn_next(x_try, u_try)                 (squash, dynamics, Euler)
-//   c_t   = running cost at (x_try, u_try)
+//   x     = dyn_next(x_try, u_try)                 (squash, dynamics, Euler
+//                                                   or RK4)
+//   c_t   = running cost at (x_try, u_try)         (RK4: its quadrature over
+//                                                   the four stage points)
 // Outputs xs_try (B, A, T, nx), us_try (B, A, T, nu), cs (B, A, T) and the
 // state after the last node, xn (B, A, nx). The terminal node and the
 // divergence checks stay in PyTorch (solvers/fddp.py).
@@ -43,15 +45,23 @@
 //   the forces, so the first thread, which owns them, takes it after the
 //   solve. Each group's CoopContact is allocated for a contact spec only:
 //   a free-flight spec pays neither its shared memory nor its barrier.
+// - An RK4 spec runs coop_dam, the dynamics pass, four times a node step,
+//   at y0 = x_try and the stage points y1..y3 that the group's first
+//   thread puts into the working set's state between the passes
+//   (model.cuh rk4_stage); the cost threads of each pass take the slots at
+//   that pass's stage point, weighted dt/6, dt/3, dt/3, dt/6. Each group's
+//   CoopRk4 (x_try and the k-sum) is allocated for an RK4 spec only; the
+//   kernel is instantiated per integrator, so the Euler step's code has no
+//   RK4 branch.
 // - xs_try and us_try leave per node as contiguous runs written by the
 //   group; cs is staged for the whole horizon and leaves as one run per
 //   lane.
 //
 // What bounds it on an H100: latency. Every node is a chain of about 35
-// barrier phases through shared memory, and the 29 nodes follow one
-// another; all 512 blocks are resident at once, so the kernel takes one
-// block's chain. The bytes (about 18 MB in and 17 MB out in f32) would take
-// about 11 us at 3.35 TB/s.
+// barrier phases through shared memory (about 4 x 30 under RK4), and the
+// 29 nodes follow one another; all 512 blocks are resident at once, so the
+// kernel takes one block's chain. The bytes (about 18 MB in and 17 MB out
+// in f32) would take about 11 us at 3.35 TB/s.
 #include <cuda_runtime.h>
 
 #include "model.cuh"
@@ -106,6 +116,13 @@ __device__ __forceinline__ void ro_load_node(const ModelDesc& d, int b, int t, i
 // the serial parts of a step (the group's first thread)
 // ---------------------------------------------------------------------------
 
+// an RK4 step's state beside the working set: x_try and the k-sum
+template <class S>
+struct CoopRk4 {
+  S x[EM_MAX_NX];
+  S ksum[EM_MAX_NDX];
+};
+
 // x_try (gap contraction) and the feedback's state error
 template <class S>
 __device__ __noinline__ void ro_gap_and_error(const ModelDesc& d, CoopNode<S>& G, const S* xs_t,
@@ -120,7 +137,27 @@ __device__ __noinline__ void ro_gap_and_error(const ModelDesc& d, CoopNode<S>& G
   state_diff<S, S>(d, xs_t, G.xt, G.dx);
 }
 
-template <class S, bool CON>
+// the RK4 node step of one group: (xt = x_try, usq) -> xc and the running
+// cost's quadrature into *c_out
+template <class S>
+__device__ __forceinline__ void rk4_dyn_next(const ModelDesc& d, int l, CoopNode<S>& W,
+                                             CoopRk4<S>& R, const S* np, const S* gp,
+                                             S* c_out) {
+  const int nx = d.nq + d.nv;
+  for (int i = l; i < nx; i += RO_G) R.x[i] = W.xt[i];
+  S c = S(0);
+  for (int i = 0; i < 4; ++i) {
+    coop_dam<S, RO_G, false>(d, l, W, nullptr, np, gp, true);
+    if (l == 0) {
+      c = c + S(rk4_coeff(d, i)) * coop_cost_sum(d, W);
+      rk4_stage<S>(d, i, R.x, W.xt, W.rhs, R.ksum, i < 3 ? W.xt : W.xc);
+    }
+    __syncwarp();
+  }
+  if (l == 0) *c_out = c;
+}
+
+template <class S, bool CON, bool RK4>
 __global__ void __launch_bounds__(RO_MAX_THREADS)
 rollout_kernel(const ModelDesc* __restrict__ desc, int B, int A, int T, int box,
                const S* __restrict__ xs, const S* __restrict__ us,
@@ -141,7 +178,8 @@ rollout_kernel(const ModelDesc* __restrict__ desc, int B, int A, int T, int box,
   extern __shared__ unsigned char smem_raw[];
   CoopNode<S>* groups = reinterpret_cast<CoopNode<S>*>(smem_raw);
   CoopContact<S>* cons = reinterpret_cast<CoopContact<S>*>(groups + ngroups);
-  S* op = reinterpret_cast<S*>(cons + (CON ? ngroups : 0));   // [2][op_len]
+  CoopRk4<S>* rks = reinterpret_cast<CoopRk4<S>*>(cons + (CON ? ngroups : 0));
+  S* op = reinterpret_cast<S*>(rks + (RK4 ? ngroups : 0));   // [2][op_len]
   S* gp = op + 2 * op_len;                           // [glob_dim]
   S* cst = gp + d.glob_dim;                          // [ngroups][T]
   CoopNode<S>& G = groups[g];
@@ -191,7 +229,10 @@ rollout_kernel(const ModelDesc* __restrict__ desc, int B, int A, int T, int box,
       for (int i = l; i < nx; i += RO_G) xs_try[lt * nx + i] = G.xt[i];
       for (int i = l; i < nu; i += RO_G) us_try[lt * nu + i] = G.u[i];
     }
-    coop_dyn_next<S, RO_G, CON>(d, l, G, cons + g, np_t, gp, cst + g * T + t);
+    if constexpr (RK4)
+      rk4_dyn_next<S>(d, l, G, rks[g], np_t, gp, cst + g * T + t);
+    else
+      coop_dyn_next<S, RO_G, CON>(d, l, G, cons + g, np_t, gp, cst + g * T + t);
     __syncthreads();
   }
   if (real) {
@@ -210,11 +251,14 @@ static int launch_rollout(const void* desc, const ModelDesc* hd, int B, int A, i
   const int threads = ((A * RO_G + 31) / 32) * 32;
   if (A < 1 || threads > RO_MAX_THREADS) return (int)cudaErrorInvalidValue;
   const int ngroups = threads / RO_G;
-  const bool con = contact_path(*hd);
-  const size_t smem = ngroups * (sizeof(CoopNode<S>) + (con ? sizeof(CoopContact<S>) : 0))
+  const bool con = contact_path(*hd), rk4 = hd->integrator == EM_RK4;
+  if (con && rk4) return (int)cudaErrorInvalidValue;   // not instantiated
+  const size_t smem = ngroups * (sizeof(CoopNode<S>) + (con ? sizeof(CoopContact<S>) : 0)
+                                 + (rk4 ? sizeof(CoopRk4<S>) : 0))
       + sizeof(S) * ((size_t)2 * ro_op_len(hd->nq + hd->nv, 2 * hd->nv, hd->nu, hd->node_dim)
                      + hd->glob_dim + (size_t)ngroups * T);
-  const auto kernel = con ? &rollout_kernel<S, true> : &rollout_kernel<S, false>;
+  const auto kernel = con ? &rollout_kernel<S, true, false>
+                          : (rk4 ? &rollout_kernel<S, false, true> : &rollout_kernel<S, false, false>);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

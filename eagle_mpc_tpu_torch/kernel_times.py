@@ -7,11 +7,12 @@ Each ROOT is the root of a checkout (an unpacked ``git archive`` of
 another commit, or ``.``); each runs in a process of its own, in the order
 given (e.g. ``parent . . parent``), and uses that checkout's own
 ``chip_smoke.py`` helpers and kernels. The inputs are the JAX fixtures'
-float32 tick states of the Carrot and the Weighted controller
-(tests/fixtures/torch_port_{flagship,weighted}.npz) tiled to B=512, every
-other scenario infeasible; times are CUDA-event medians of 20 launches.
-Prints one ``TIMES <root> {"carrot": {...}, "weighted": {...}}`` line per
-run and the card's name and power limit.
+float32 tick states of the Carrot and the Weighted controller and of the
+Carrot with RK4 nodes, where the checkout has it
+(tests/fixtures/torch_port_{flagship,weighted,rk4}.npz), tiled to B=512,
+every other scenario infeasible; times are CUDA-event medians of 20
+launches. Prints one ``TIMES <root> {"carrot": {...}, "weighted": {...},
+"rk4": {...}}`` line per run and the card's name and power limit.
 """
 
 import subprocess
@@ -29,7 +30,7 @@ _cuda.build()
 B = 512
 tile = lambda a: torch.as_tensor(np.concatenate([a] * (B // a.shape[0])))
 times = {}
-for controller in ("carrot", "weighted"):
+for controller in [c for c in ("carrot", "weighted", "rk4") if c in cs.FIXTURES]:
     fx = np.load(os.path.join("tests", "fixtures", cs.FIXTURES[controller]))
     state = (float(fx["tick_t"][0]), tile(fx["x0"]), tile(fx["tick_xs_in"]),
              tile(fx["tick_us_in"]))

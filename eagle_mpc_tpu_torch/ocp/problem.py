@@ -2,8 +2,8 @@
 
 PyTorch counterpart of ``eagle_mpc_tpu.ocp.problem`` for free and
 contact-constrained dynamics (3-D and 6-D contacts with per-node activity,
-the friction cone on their forces), the symplectic-Euler integrator and
-STATE/CONTROL/operational-frame cost slots:
+the friction cone on their forces), the symplectic-Euler and RK4
+integrators and STATE/CONTROL/operational-frame cost slots:
 
 - ``ProblemSpec``: static structure (robot model, cost slots, horizon, dt);
 - ``ProblemParams``: tensors a controller changes at run time (per-node
@@ -189,8 +189,8 @@ class ProblemSpec:
 
 def check_scope(spec: ProblemSpec) -> None:
     """Raise for a spec outside what this package evaluates."""
-    if spec.integrator != EULER:
-        raise NotImplementedError("only the Euler integrator is ported")
+    if spec.integrator not in (EULER, RK4):
+        raise NotImplementedError(f"integrator {spec.integrator!r}")
     for c in spec.contacts:
         if not isinstance(c, ContactSlot) or c.dim not in (3, 6):
             raise NotImplementedError(f"contact {c!r}: not a 3-D or 6-D "
@@ -345,22 +345,47 @@ def _point_cost(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x, s,
     return total
 
 
-def _euler_step(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x, s):
-    """Symplectic Euler: dq = v dt + a dt^2, dv = a dt. Returns
-    (xnext, u_squash, per-contact forces)."""
+def _stage_points(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x, s):
+    """Evaluation points and quadrature coefficients of the integrator:
+    ([(coeff, x_i, forces_i)], xnext, u_squash), the coefficients summing
+    to dt. Euler is the reference's symplectic Euler (dq = v dt + a dt^2,
+    dv = a dt); RK4 is crocoddyl's manifold RK4 with the cost quadrature
+    dt/6 (l0 + 2 l1 + 2 l2 + l3), each stage point with its contact forces."""
     st = spec.state
     dt = spec.dt
-    a, u_sq, forces = _dam(spec, view, glob, x, s)
-    vnext = x[..., st.nq:] + a * dt
-    return (st.integrate(x, torch.cat([vnext * dt, a * dt], dim=-1)), u_sq,
-            forces)
+    v = x[..., st.nq:]
+    a0, u_sq, f0 = _dam(spec, view, glob, x, s)
+    if spec.integrator == EULER:
+        vnext = v + a0 * dt
+        dx = torch.cat([vnext * dt, a0 * dt], dim=-1)
+        return [(dt, x, f0)], st.integrate(x, dx), u_sq
+
+    def k(xi, ai):
+        return torch.cat([xi[..., st.nq:], ai], dim=-1)
+
+    k0 = k(x, a0)
+    y1 = st.integrate(x, k0 * (dt / 2))
+    a1, _, f1 = _dam(spec, view, glob, y1, s)
+    k1 = k(y1, a1)
+    y2 = st.integrate(x, k1 * (dt / 2))
+    a2, _, f2 = _dam(spec, view, glob, y2, s)
+    k2 = k(y2, a2)
+    y3 = st.integrate(x, k2 * dt)
+    a3, _, f3 = _dam(spec, view, glob, y3, s)
+    k3 = k(y3, a3)
+    dx = (k0 + 2 * k1 + 2 * k2 + k3) * (dt / 6)
+    pts = [(dt / 6, x, f0), (dt / 3, y1, f1), (dt / 3, y2, f2), (dt / 6, y3, f3)]
+    return pts, st.integrate(x, dx), u_sq
 
 
 def node_calc(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x, s):
-    """Running node: (xnext, discrete cost dt * l(x, s), u_squash)."""
-    xnext, u_sq, forces = _euler_step(spec, view, glob, x, s)
-    return xnext, spec.dt * _point_cost(spec, view, glob, x, s, False,
-                                        forces), u_sq
+    """Running node: (xnext, discrete cost, u_squash); the cost is the
+    integrator's quadrature of l over its stage points (Euler: dt l(x, s))."""
+    pts, xnext, u_sq = _stage_points(spec, view, glob, x, s)
+    cost = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for coeff, xi, fi in pts:
+        cost = cost + coeff * _point_cost(spec, view, glob, xi, s, False, fi)
+    return xnext, cost, u_sq
 
 
 def terminal_calc(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x):
@@ -409,25 +434,31 @@ def node_calc_diff(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x, s):
     """Derivatives of running nodes in the tangent space, batched over the
     leading dims of x (..., nx) / s (..., nu) with matching params. One
     forward-mode Jacobian over the ndx + nu tangent directions gives the
-    dynamics Jacobians and every residual Jacobian; cost derivatives are
-    Gauss-Newton."""
+    dynamics Jacobians and every residual Jacobian at every stage point;
+    cost derivatives are Gauss-Newton over the stacked rows, each stage's
+    weighted by its quadrature coefficient."""
     st = spec.state
     ndx = st.ndx
-    xnext0 = _euler_step(spec, view, glob, x, s)[0]
+    pts0, xnext0, _ = _stage_points(spec, view, glob, x, s)
 
     def fun(z):
         xx = st.integrate(x, z[..., :ndx])
         ss = s + z[..., ndx:]
-        xnext, _, forces = _euler_step(spec, view, glob, xx, ss)
-        return torch.cat([st.diff(xnext0, xnext)]
-                         + _point_residuals(spec, view, xx, ss, False, forces),
-                         dim=-1)
+        pts, xnext, _ = _stage_points(spec, view, glob, xx, ss)
+        outs = [st.diff(xnext0, xnext)]
+        for _, xi, fi in pts:
+            outs += _point_residuals(spec, view, xi, ss, False, fi)
+        return torch.cat(outs, dim=-1)
 
     z0 = torch.zeros(x.shape[:-1] + (ndx + spec.nu,), dtype=x.dtype,
                      device=x.device)
     val0, J = _jacobian(fun, z0)
-    cost, g, H = _gauss_newton(spec, J[..., ndx:, :], val0[..., ndx:], view,
-                               glob, spec.dt)
+    n_res = sum(slot.nr for slot in spec.slots)
+    rows = [slice(ndx + i * n_res, ndx + (i + 1) * n_res)
+            for i in range(len(pts0))]
+    cost, g, H = (sum(terms) for terms in zip(*(
+        _gauss_newton(spec, J[..., r, :], val0[..., r], view, glob, coeff)
+        for r, (coeff, _, _) in zip(rows, pts0))))
     return NodeDerivatives(
         cost=cost, xnext=xnext0, Fx=J[..., :ndx, :ndx], Fu=J[..., :ndx, ndx:],
         Lx=g[..., :ndx], Lu=g[..., ndx:], Lxx=H[..., :ndx, :ndx],
@@ -466,18 +497,20 @@ def calc_diff_all(spec: ProblemSpec, params: ProblemParams, xs, us):
 
 def total_cost(spec: ProblemSpec, params: ProblemParams, xs, us):
     """Total cost (B,) of candidates without the dynamics rollout: under
-    Euler the running cost is dt * l(x_t, u_t). A contact spec evaluates
-    the whole node instead, as the reference does: the friction cone needs
-    the forces of the constrained dynamics; on the card K1 does it."""
+    Euler the running cost is dt * l(x_t, u_t). A contact or RK4 spec
+    evaluates the whole node instead, as the reference does: the friction
+    cone needs the forces of the constrained dynamics, RK4's quadrature its
+    stage points; on the card K1 does it."""
     views = running_views(params.node, spec.T)
     glob = glob_over_nodes(params.glob)
     cT = terminal_calc(spec, terminal_view(params.node, spec.T), params.glob,
                        xs[:, spec.T])
-    if spec.contacts and xs.device.type != "cpu":
+    whole_node = bool(spec.contacts) or spec.integrator != EULER
+    if whole_node and xs.device.type != "cpu":
         from ..ops import node_cuda
 
         return node_cuda.calc_diff_running(spec, params, xs, us).cost.sum(1) + cT
-    if spec.contacts:
+    if whole_node:
         return node_calc(spec, views, glob, xs[:, :spec.T], us)[1].sum(1) + cT
     costs = _point_cost(spec, views, glob, xs[:, :spec.T], us, False)
     return spec.dt * costs.sum(dim=1) + cT

@@ -51,6 +51,7 @@ _KIND = {C.STATE: 0, C.CONTROL: 1, C.FRAME_PLACEMENT: 2,
          C.FRAME_TRANSLATION: 3, C.FRAME_ROTATION: 4, C.FRAME_VELOCITY: 5,
          C.FRICTION_CONE: 6}
 _ACT = {C.QUAD: 0, C.WQUAD: 1, C.QBARRIER: 2, C.WQBARRIER: 3}
+_INTEGRATOR = {P.EULER: 0, P.RK4: 1}
 
 
 class ModelDesc(ctypes.Structure):
@@ -88,6 +89,7 @@ class ModelDesc(ctypes.Structure):
         ("con_row", ctypes.c_int * MAX_CONTACTS),
         ("con_ref_off", ctypes.c_int * MAX_CONTACTS),
         ("con_act_off", ctypes.c_int),
+        ("integrator", ctypes.c_int),
     ]
 
 
@@ -229,6 +231,12 @@ def make_descriptor(spec: P.ProblemSpec) -> ModelDesc:
             f"{spec.nc_rows} constraint rows > {MAX_NC})")
     if spec.nu != n_rot + m.nj:
         raise NotImplementedError("controls must be rotor thrusts + joint torques")
+    if spec.integrator == P.RK4 and (spec.contacts or any(
+            s.kind == C.FRICTION_CONE for s in spec.slots)):
+        raise NotImplementedError(
+            "RK4 with contacts runs on the plain path only: the kernels' RK4 "
+            "branch is free flight (ROADMAP queue 2, RK4 with contacts in "
+            "K1/K2)")
     d = ModelDesc()
     d.joint_p[:3 * m.nj] = np.asarray(m.joint_p, float).reshape(-1).tolist()
     d.joint_R[:9 * m.nj] = np.asarray(m.joint_R, float).reshape(-1).tolist()
@@ -241,6 +249,7 @@ def make_descriptor(spec: P.ProblemSpec) -> ModelDesc:
     d.joint_type[:m.nj] = [0 if jt == REVOLUTE else 1 for jt in m.joint_type]
     d.nj, d.nq, d.nv, d.nu, d.n_rot = m.nj, m.nq, m.nv, spec.nu, n_rot
     d.use_squash = int(spec.use_squash)
+    d.integrator = _INTEGRATOR[spec.integrator]
     K = len(spec.slots)
     d.n_slots = K
     ref_off, glob_off = 2 * K, 1 + 2 * spec.nu

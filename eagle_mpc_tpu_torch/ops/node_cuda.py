@@ -12,8 +12,10 @@ import torch
 from ..ocp import problem as P
 from . import _cuda
 
-#: kernel launches since the last reset (the plain path does not count)
+#: kernel launches since the last reset (the plain path does not count),
+#: and those of them on an RK4 spec
 LAUNCHES = 0
+RK4_LAUNCHES = 0
 
 
 def calc_diff_running_plain(spec: P.ProblemSpec, params: P.ProblemParams,
@@ -34,7 +36,7 @@ def calc_diff_running(spec: P.ProblemSpec, params: P.ProblemParams,
     batched params -> NodeDerivatives with leading (B, T)."""
     if xs.device.type == "cpu":
         return calc_diff_running_plain(spec, params, xs, us)
-    global LAUNCHES
+    global LAUNCHES, RK4_LAUNCHES
     _cuda.require_cuda(xs)
     B, T = us.shape[0], spec.T
     nx, nu, ndx = spec.model.nx, spec.nu, spec.state.ndx
@@ -51,4 +53,5 @@ def calc_diff_running(spec: P.ProblemSpec, params: P.ProblemParams,
                B * T, T,
                *(a.data_ptr() for a in (x, us, node_rows, glob_rows) + out))
     LAUNCHES += 1
+    RK4_LAUNCHES += spec.integrator == P.RK4
     return out

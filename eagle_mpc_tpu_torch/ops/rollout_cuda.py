@@ -14,9 +14,10 @@ from ..ocp import problem as P
 from . import _cuda
 
 #: kernel launches since the last reset (the plain path does not count),
-#: and those of them with the box clip
+#: those of them with the box clip and those on an RK4 spec
 LAUNCHES = 0
 BOX_LAUNCHES = 0
+RK4_LAUNCHES = 0
 
 
 def rollout_plain(spec: P.ProblemSpec, params: P.ProblemParams, xs, us, k, K,
@@ -57,7 +58,7 @@ def rollout(spec: P.ProblemSpec, params: P.ProblemParams, xs, us, k, K, fs,
     """Same signature and result as :func:`rollout_plain`."""
     if xs.device.type == "cpu":
         return rollout_plain(spec, params, xs, us, k, K, fs, alphas, keep, box)
-    global LAUNCHES, BOX_LAUNCHES
+    global LAUNCHES, BOX_LAUNCHES, RK4_LAUNCHES
     _cuda.require_cuda(xs)
     B, A = keep.shape
     T, nx, nu, ndx = spec.T, spec.model.nx, spec.nu, spec.state.ndx
@@ -80,4 +81,5 @@ def rollout(spec: P.ProblemSpec, params: P.ProblemParams, xs, us, k, K, fs,
                  + [keep8, node_rows, glob_rows, *out]))
     LAUNCHES += 1
     BOX_LAUNCHES += int(box)
+    RK4_LAUNCHES += spec.integrator == P.RK4
     return out

@@ -1,10 +1,11 @@
 """Profile the port's flagship tick or offline solve on one card: where
 the time goes.
 
-    python3 -m eagle_mpc_tpu_torch.profile_tick [carrot|weighted|rail|offline|closed_loop|contacts]
+    python3 -m eagle_mpc_tpu_torch.profile_tick [carrot|weighted|rail|rk4|offline|closed_loop|contacts]
 
 Runs a path of ``chip_smoke.py`` (hexacopter370_flying_arm_3 displacement,
-float32; the carrot path by default). An MPC path (offline reference,
+float32; the carrot path by default; ``rk4`` the carrot with RK4 nodes,
+``chip_smoke.py``'s phase 9). An MPC path (offline reference,
 B=512, from its start time): the depth-30 warm start and one settle chunk
 of 10 chained ticks, then 3 ticks unprofiled (the tick time) and 3 more
 under ``torch.profiler``. ``offline``: the offline solve at B=1 (T=132,
@@ -245,7 +246,8 @@ def _profile_and_report(device, spans, run, n, unit):
     for e in rows:
         print(f"| `{e.key}` | {e.cpu_time_total / e.count / 1e3:.3f} | "
               f"{e.count / n:.2f} |")
-    for kernel in ("node_kernel", "riccati_kernel", "rollout_kernel"):
+    for kernel in ("node_kernel", "node_rk4_kernel", "riccati_kernel",
+                   "rollout_kernel"):
         ks = [e for e in events if kernel in e.key and _device_us(e) > 0]
         k = sum(e.count for e in ks)
         if k:

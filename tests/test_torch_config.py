@@ -89,3 +89,117 @@ def test_load_ref_matches_tools():
                                      traj=traj, synthetic=synthetic)
         assert gkind == wkind == ("synthetic" if synthetic else "offline")
         np.testing.assert_array_equal(got, want)
+
+
+# the converter's strings of the JAX package's own codec tests
+# (tests/test_config.py TestConverterCodecs): (function, argument, converter)
+CONVERTER_CASES = [
+    ("convert_matrix", "[1,2.5,-3]", None),
+    ("convert_matrix", "[[2,3],1,2,3,4,5,6]", None),
+    ("convert_matrix", "[[2,2],1,2,3]", None),          # raises
+    ("convert_matrix", "[[1,3],7,8,9]", None),
+    ("convert_pair", "{gain:2.5}", None),
+    ("convert_pair", "{name:hexa}", str),
+    ("convert_map", "[{kp:1.5},{kd:0.25}]", None),
+    ("convert_map", "[kp:1.5]", None),                  # raises
+    ("parse_list", "[a,[b,c],{d:e}]", None),
+    ("to_string", np.arange(6.0).reshape(2, 3), None),
+    ("to_string", {"a": 1.0, "b": -2.5}, None),
+]
+
+
+@pytest.mark.parametrize("fn,arg,conv", CONVERTER_CASES,
+                         ids=[f"{f}-{i}" for i, (f, _, _) in
+                              enumerate(CONVERTER_CASES)])
+def test_converter_matches_jax(fn, arg, conv):
+    """The port's converter gives the JAX converter's value, or raises its
+    ValueError; a serialized value reads back the same in both."""
+    from eagle_mpc_tpu.config import converter as jcvt
+    from eagle_mpc_tpu_torch.config import converter as cvt
+
+    args = (arg,) if conv is None else (arg, conv)
+    try:
+        want = getattr(jcvt, fn)(*args)
+    except ValueError:
+        with pytest.raises(ValueError):
+            getattr(cvt, fn)(*args)
+        return
+    got = getattr(cvt, fn)(*args)
+    assert_same(want, got)
+    if fn == "to_string":
+        back = "convert_map" if isinstance(arg, dict) else "convert_matrix"
+        assert_same(getattr(jcvt, back)(want), getattr(cvt, back)(got))
+
+
+def _servers(params):
+    return jparser.ParamsServer(params), parser.ParamsServer(params)
+
+
+@pytest.mark.parametrize("doc", [f"{FLAGSHIP}/trajectories/displacement.yaml",
+                                 f"{FLAGSHIP}/mpc/mpc.yaml"])
+def test_params_server_api_matches_jax(doc):
+    """``has``, ``keys``, ``add_param`` and every typed getter on the
+    flagship's YAML register, and ``get_matrix`` / ``get_map`` /
+    ``get_pair`` on the reference's string forms, as the JAX package's."""
+    path = f"{MISSIONS}/{doc}"
+    js, ps = _servers(jparser.ParserYaml(path, yaml_dir=MISSIONS).get_params())
+    assert_same(js, parser.ParamsServer(
+        parser.ParserYaml(path, yaml_dir=MISSIONS).get_params()))
+    assert ps.keys == js.keys and ps.keys
+    assert not ps.has("no/such/key") and not js.has("no/such/key")
+    for key in js.keys:
+        assert ps.has(key) and js.has(key)
+        value = js.get_raw(key)
+        if isinstance(value, list) and value and all(
+                isinstance(v, (int, float)) for v in value):
+            assert_same(js.get_matrix(key), ps.get_matrix(key), key)
+            assert_same(js.get_vector(key), ps.get_vector(key), key)
+    for srv in (js, ps):
+        srv.add_param("extra/value", 2.5)
+        srv.add_param(js.keys[0], "not kept")    # the first value wins
+    assert_same(js, ps)
+    strings = {"mat": "[[2,2],1,2,3,4]", "vec": "[1,2,3]",
+               "vec_dyn": "[[1,3],7,8,9]", "gains": "[{kp:10},{kd:2}]",
+               "pair": "{mass:1.52}", "names": "{frame:gripper}",
+               "yaml_map": {"kp": 3, "kd": "0.5"}}
+    js, ps = _servers(strings)
+    for key in ("mat", "vec", "vec_dyn"):
+        assert_same(js.get_matrix(key), ps.get_matrix(key), key)
+        assert_same(js.get_vector(key), ps.get_vector(key), key)
+    for key in ("gains", "yaml_map"):
+        assert_same(js.get_map(key), ps.get_map(key), key)
+    assert_same(js.get_pair("pair"), ps.get_pair("pair"))
+    assert_same(js.get_pair("names", str), ps.get_pair("names", str))
+    with pytest.raises(parser.MissingValueException):
+        ps.get_matrix("no/such/key")
+
+
+@pytest.mark.parametrize("freely_parse", [False, True])
+def test_parser_arguments_match_jax(freely_parse):
+    """``ParserYaml(file, path_root, freely_parse)``: a file relative to
+    ``path_root``, parsed by the schema or walked whole, gives the JAX
+    parser's register."""
+    root = f"{MISSIONS}/{FLAGSHIP}"
+    for doc, top in (("trajectories/displacement.yaml", "trajectory"),
+                     ("mpc/mpc.yaml", "mpc_controller")):
+        kw = dict(path_root=root, freely_parse=freely_parse, yaml_dir=MISSIONS)
+        want = jparser.ParserYaml(doc, **kw)
+        got = parser.ParserYaml(doc, **kw)
+        assert_same(want.get_params(), got.get_params(), doc)
+        # a free walk keeps the document's top-level key in every path
+        free = all(k.startswith(top + "/") for k in got.get_params())
+        assert free == freely_parse, doc
+
+
+@pytest.mark.parametrize("preset,kw", [
+    ("hexarotor370_params", {}), ("hexarotor370_params", {"n_arm_joints": 3}),
+    ("hexarotor680_params", {}),
+    ("hexarotor680_params", {"n_arm_joints": 2, "arm_effort_limit": [2.0, 1.5]}),
+])
+def test_platform_presets_match_jax(preset, kw):
+    """Both hexarotor presets build the same PlatformParams as the JAX
+    package's, field by field (and are exported from ``utils``)."""
+    from eagle_mpc_tpu import utils as jutils
+    from eagle_mpc_tpu_torch import utils
+
+    assert_same(getattr(jutils, preset)(**kw), getattr(utils, preset)(**kw))

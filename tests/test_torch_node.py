@@ -141,17 +141,20 @@ def test_pack_params_matches_descriptor(ctrls):
 
 @pytest.mark.parametrize("change", ["rk4", "no_slots", "frame_cost",
                                     "contacts", "friction_cone",
-                                    "contact_rows", "cone_contact"])
+                                    "contact_rows", "cone_contact",
+                                    "rk4_contacts"])
 def test_out_of_scope_spec_raises(ctrls, change):
     """The kernels take Euler, free or contact dynamics with up to 6
-    constraint rows (one 6-D contact or two 3-D ones), and 0 to 12 STATE /
-    CONTROL / frame / friction-cone slots; any other spec raises instead of
-    running a different path. Raise: rk4; frame_cost, a frame slot past the
-    12 the kernels hold; contact_rows, a 6-D and a 3-D contact (9 rows);
-    cone_contact, a cone on a contact the spec lacks. Taken: no_slots, the
-    slot-less spec (as the JAX package evaluates it), with a contact too;
-    contacts, the gripper's 3-D or 6-D contact, or two 3-D ones;
-    friction_cone, a cone on the gripper's contact."""
+    constraint rows (one 6-D contact or two 3-D ones), RK4 in free flight,
+    and 0 to 12 STATE / CONTROL / frame / friction-cone slots; any other
+    spec raises instead of running a different path. Raise: frame_cost, a
+    frame slot past the 12 the kernels hold; contact_rows, a 6-D and a 3-D
+    contact (9 rows); cone_contact, a cone on a contact the spec lacks;
+    rk4_contacts, RK4 with a contact or a friction cone (the plain path
+    only). Taken: rk4, the RK4 integrator in free flight (the descriptor
+    says so); no_slots, the slot-less spec (as the JAX package evaluates
+    it), with a contact too; contacts, the gripper's 3-D or 6-D contact, or
+    two 3-D ones; friction_cone, a cone on the gripper's contact."""
     spec = ctrls[1].spec
     grip = C.CostSlot("grip", C.FRAME_TRANSLATION, C.QUAD, 3, 3, frame_id=0)
     fid = spec.model.frame_id("flying_arm_3__gripper")
@@ -162,14 +165,19 @@ def test_out_of_scope_spec_raises(ctrls, change):
                           [0.0, 0.0, 1.0], 0.7))))
     change_spec = lambda **kw: dataclasses.replace(spec, **kw)
     bad = {
-        "rk4": dict(integrator=P.RK4),
         "frame_cost": dict(slots=spec.slots + (grip,) * (
             _cuda.MAX_SLOTS + 1 - len(spec.slots))),
         "contact_rows": dict(contacts=(c6, c3)),
         "cone_contact": dict(slots=spec.slots + (cone._replace(contact_id=1),),
                              contacts=(c3,)),
     }
+    rk4_bad = [dict(integrator=P.RK4, contacts=(c3,)),
+               dict(integrator=P.RK4, slots=spec.slots + (cone,),
+                    contacts=(c3,)),
+               dict(integrator=P.RK4, slots=spec.slots + (
+                   cone._replace(contact_id=-1),))]
     taken = {
+        "rk4": [dict(integrator=P.RK4)],
         "no_slots": [dict(slots=()), dict(slots=(), contacts=(c3,))],
         "frame_cost": [dict(slots=spec.slots + (grip,) * (
             _cuda.MAX_SLOTS - len(spec.slots)))],
@@ -180,10 +188,18 @@ def test_out_of_scope_spec_raises(ctrls, change):
     if change in bad:
         with pytest.raises(NotImplementedError):
             _cuda.make_descriptor(change_spec(**bad[change]))
+    if change == "rk4_contacts":
+        for kw in rk4_bad:
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+                _cuda.make_descriptor(change_spec(**kw))
+            P.check_scope(change_spec(**kw))    # the plain path takes it
     for kw in taken.get(change, ()):
         d = _cuda.make_descriptor(change_spec(**kw))
         assert d.n_con == len(kw.get("contacts", ()))
         assert d.nc == sum(c.dim for c in kw.get("contacts", ()))
+    if change == "rk4":
+        assert _cuda.make_descriptor(change_spec(integrator=P.RK4)).integrator == 1
+        assert _cuda.make_descriptor(spec).integrator == 0
     if change == "no_slots":
         d = _cuda.make_descriptor(change_spec(slots=()))
         assert (d.n_slots, d.n_res, d.node_dim) == (0, 0, 0)

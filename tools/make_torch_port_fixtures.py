@@ -125,10 +125,40 @@ gripper frame of hexacopter370_flying_arm_3):
 - ``it_*``: ``fddp.solve_fddp`` of monkey_bar at dt 100 ms (T = 18) from
   ``default_init``, maxiter 3, th_stop 1e-9, the trace recorded.
 
-Compiling the solvers takes a few minutes on a CPU (about 2 minutes per
-controller). Regenerate all six, or the ones named, with
+The RK4 integrator (``torch_port_rk4.npz``, ``rk4``; every problem built
+with ``integrator="IntegratedActionModelRK4"``):
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship weighted rail offline closed_loop contacts]
+- ``x0``, ``warm_*``, ``tick_*``: the flagship CarrotMpc with RK4 nodes
+  (``mpc.yaml`` with ``integration_method`` RK4), as the carrot fixture's
+  (seed 0, 3480 / 3500 ms); ``cd_*`` its node derivatives of the XLA path
+  on the carrot fixture's perturbed candidates at 500 and 3500 ms;
+- ``sp_*``: the flagship mission at dt 20 ms (tests/test_problem.py's
+  derivative test) at 3 seeded states and controls (seed 3) and nodes
+  0, 40 and 100: ``_stage_points`` (the four points), ``node_calc`` and
+  ``node_calc_diff``;
+- iris hover at dt 60 ms (T = 18): ``fp_*`` / ``fpbox_*``
+  ``fddp._forward_pass`` for the 10 alphas without and with the clip at a
+  rough candidate with random gains and gaps (element 0 infeasible,
+  element 1 feasible), ``tc_*`` ``total_cost`` there, ``it_*``
+  ``fddp.solve_fddp`` from ``default_init`` with maxiter 3 and th_stop
+  1e-9, and ``off_*`` ``sbfddp.solve`` at maxiter 100
+  (tests/test_missions.py's RK4 mission solve);
+- ``mpc_*``: a CarrotMpc with RK4 nodes on iris hover
+  (tests/test_mpc.py's ``TestRk4ClosedLoop``; the reference the
+  ``iris_*`` solve of ``torch_port_closed_loop.npz``): ``update_problem``
+  at 4 times and ``run_closed_loop`` for one tick at dt_sim 10 ms from
+  the hold-padded warm start;
+- ``mb_*``: ``node_calc_diff`` of monkey_bar at dt 40 ms with RK4 nodes
+  at the contact fixture's solution, hang nodes 1 and 15 and the free
+  node 35.
+
+Compiling the solvers takes a few minutes on a CPU (about 2 minutes per
+controller). Regenerate all seven, or the ones named, with
+
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship weighted rail offline closed_loop contacts rk4]
+
+(``closed_loop`` reads ``torch_port_flagship.npz``, ``rk4`` reads
+``torch_port_closed_loop.npz`` and ``torch_port_contacts.npz``.)
 """
 
 import os
@@ -739,6 +769,141 @@ def contacts_fixture(missions):
     return out
 
 
+RK4 = "IntegratedActionModelRK4"
+
+
+def rk4_fixture(missions, mp, traj, ref, sim):
+    """The RK4 integrator's JAX values (module docstring); ``mp``,
+    ``traj``, ``ref`` and ``sim`` are the flagship's."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from eagle_mpc_tpu.config import specs
+    from eagle_mpc_tpu.mpc import CarrotMpc, run_closed_loop
+    from eagle_mpc_tpu.ocp import problem as P
+    from eagle_mpc_tpu.sim import AerialSimulator
+    from eagle_mpc_tpu.solvers import fddp, sbfddp
+
+    host = lambda a: np.asarray(a)
+    out = {}
+
+    # the flagship carrot with RK4 nodes: warm start, tick, node derivatives
+    ctrl = CarrotMpc(mpc_params=dataclasses.replace(
+        mp, integration_method=RK4), trajectory=traj, state_ref=ref,
+        dt_ref=DT_REF)
+    assert ctrl.spec.integrator == P.RK4
+    out.update(tick_fixture(ctrl, sim, ref, mp, *TIMES["flagship"],
+                            SEEDS["flagship"]))
+    xs, us = perturbed(ctrl.spec, ctrl.params0.x0, 0)
+    out.update(calc_diff_fixture(ctrl, np.array([500.0, 3500.0]), xs[:, 0],
+                                 xs, us))
+
+    # stage points, node_calc and node_calc_diff of the flagship at dt 20
+    spec, params = P.from_trajectory(traj, dt_ms=20, use_squash=True,
+                                     integrator=RK4)
+    params = P.as_device(params)
+    st = spec.state
+    rng = np.random.default_rng(3)
+    nodes = np.array([0, 40, 100])
+    xs = np.stack([host(st.rand(rng)) for _ in nodes])
+    ss = rng.normal(size=(len(nodes), spec.nu))
+
+    def one(t, x, s):
+        view = P.node_view(params.node, t)
+        pts, xnext, usq = P._stage_points(spec, view, params.glob, x, s)
+        xn, cost, _ = P.node_calc(spec, view, params.glob, x, s)
+        d = P.node_calc_diff(spec, view, params.glob, x, s)
+        return jnp.stack([p[1] for p in pts]), xnext, usq, xn, cost, d
+
+    got = [jax.jit(one)(t, x, s) for t, x, s in zip(nodes, xs, ss)]
+    out.update(sp_nodes=nodes, sp_x=xs, sp_s=ss)
+    for i, n in enumerate(("pts", "pts_xnext", "usq", "xnext", "cost")):
+        out[f"sp_{n}"] = np.stack([host(g[i]) for g in got])
+    out.update({f"sp_cd_{n}": np.stack([host(getattr(g[5], n)) for g in got])
+                for n in P.NodeDerivatives._fields})
+
+    # iris hover at dt 60: forward passes, total cost, FDDP, the solve
+    itraj = specs.load_trajectory("iris/trajectories/hover.yaml",
+                                  yaml_dir=missions)
+    spec, params = P.from_trajectory(itraj, dt_ms=60, use_squash=True,
+                                     integrator=RK4)
+    settings = fddp.SolverSettings()
+    rng = np.random.default_rng(13)
+    T, nu, ndx = spec.T, spec.nu, spec.state.ndx
+    xs0, us0 = fddp.default_init(spec, params)
+    xs = np.stack([host(xs0)] * B) + rng.normal(size=(B, T + 1, spec.model.nx)) * 0.02
+    xs[..., 3:7] /= np.linalg.norm(xs[..., 3:7], axis=-1, keepdims=True)
+    us = np.stack([host(us0)] * B) + rng.normal(size=(B, T, nu)) * 0.3
+    kff = rng.normal(size=(B, T, nu)) * 0.3
+    Kfb = rng.normal(size=(B, T, nu, ndx)) * 0.05
+    fs = rng.normal(size=(B, T + 1, ndx)) * 0.01
+    feas = np.array([False, True])
+    pj = P.as_device(params)
+    for name, box in (("fp", False), ("fpbox", True)):
+        def fp(xs1, us1, k1, K1, fs1, f1):
+            bp = fddp.BackwardPassData(k=k1, K=K1, Qu=k1, Quuk=k1, Vx=fs1,
+                                       Vxx=None, ok=None)
+            return jax.vmap(lambda a: fddp._forward_pass(
+                spec, pj, xs1, us1, bp, fs1, a, f1, True, box=box,
+                th_diverge=settings.th_diverge))(jnp.asarray(settings.alphas))
+        r = jax.jit(jax.vmap(fp))(xs, us, kff, Kfb, fs, feas)
+        out.update({f"{name}_{n}": host(a) for n, a in
+                    zip(("xs_try", "us_try", "cost_try", "diverged"), r)})
+    out.update(fp_xs=xs, fp_us=us, fp_k=kff, fp_K=Kfb, fp_fs=fs,
+               fp_feasible=feas,
+               tc_cost=host(jax.jit(jax.vmap(lambda a, b: P.total_cost(
+                   spec, pj, a, b)))(xs, us)))
+    r = jax.jit(lambda p: fddp.solve_fddp(spec, settings, p, xs0, us0, 3,
+                                          1e-9))(params)
+    out.update({f"it_{n}": host(getattr(r, n)) for n in OFFLINE_NAMES})
+    r = jax.jit(lambda p: sbfddp.solve(spec, p, maxiter=100))(params)
+    out.update({f"off_{n}": host(getattr(r, n))
+                for n in OFFLINE_NAMES + ("us_squash",)})
+
+    # a CarrotMpc with RK4 nodes on iris hover: update_problem, one tick
+    with np.load(os.path.join(FIXTURES, "torch_port_closed_loop.npz")) as z:
+        ixs, ius = z["iris_xs"], z["iris_us"]
+    imp = specs.load_mpc_params("iris/mpc/mpc.yaml", yaml_dir=missions)
+    ictrl = CarrotMpc(mpc_params=dataclasses.replace(
+        imp, integration_method=RK4), trajectory=itraj, state_ref=ixs,
+        dt_ref=40)
+    assert ictrl.spec.integrator == P.RK4
+    times = np.array([0.0, 500.0, 1090.0, 1300.0])
+    upd = [ictrl.update_problem(tm, P.as_device(ictrl.params0))
+           for tm in times]
+    out.update(mpc_t=times,
+               mpc_active=np.stack([host(u.node.active) for u in upd]),
+               mpc_weight=np.stack([host(u.node.weight) for u in upd]))
+    out.update({f"mpc_ref{k}": np.stack([host(u.node.refs[k]) for u in upd])
+                for k in range(len(ictrl.spec.slots))})
+    Ti = ictrl.spec.T
+    pad = max(0, Ti + 1 - ixs.shape[0])
+    xs_w = np.vstack([ixs, np.tile(ixs[-1], (pad, 1))])[:Ti + 1]
+    us_w = np.vstack([ius, np.tile(ius[-1], (pad, 1))])[:Ti]
+    isim = AerialSimulator.from_platform(imp.model, imp.platform, dt_ms=10)
+    cl = jax.jit(lambda x0, a, b: run_closed_loop(
+        ictrl, isim, x0, a, b, n_steps=1, dt_sim_ms=10.0))(
+        jnp.asarray(ixs[0]), jnp.asarray(xs_w), jnp.asarray(us_w))
+    out.update({f"mpc_cl_{n}": host(a) for n, a in zip(CL_NAMES, cl)})
+
+    # monkey_bar's nodes with RK4 at the contact fixture's solution
+    with np.load(os.path.join(FIXTURES, "torch_port_contacts.npz")) as z:
+        mxs, mus = z["mb_xs"], z["mb_us"]
+    spec, params = P.from_trajectory(specs.load_trajectory(
+        f"{ROBOT}/trajectories/monkey_bar.yaml", yaml_dir=missions),
+        dt_ms=40, use_squash=True, integrator=RK4)
+    nodes = np.array([1, 15, 35])
+    f = jax.jit(lambda view, x, s: P.node_calc_diff(spec, view, params.glob,
+                                                    x, s))
+    got = [f(P.node_view(params.node, t), mxs[t], mus[t]) for t in nodes]
+    out["mb_nodes"] = nodes
+    out.update({f"mb_cd_{n}": np.stack([host(getattr(g, n)) for g in got])
+                for n in P.NodeDerivatives._fields})
+    return out
+
+
 def main(names):
     import jax
 
@@ -764,7 +929,22 @@ def main(names):
         "rail": RailMpc(mpc_params=mp, state_ref=ref, dt_ref=DT_REF),
     }
     os.makedirs(FIXTURES, exist_ok=True)
-    names = names or list(ctrls) + ["offline", "closed_loop", "contacts"]
+    names = names or list(ctrls) + ["offline", "closed_loop", "contacts",
+                                    "rk4"]
+    if "rk4" in names:
+        path = os.path.join(FIXTURES, "torch_port_rk4.npz")
+        out = rk4_fixture(missions, mp, traj, ref, sim)
+        np.savez_compressed(path, **out)
+        print(f"wrote {path}")
+        for n in ("warm", "tick"):
+            print(f"  {n}: iters {out[n + '_iters']} feasible "
+                  f"{out[n + '_feasible']} cost {out[n + '_cost']}")
+        for n in ("it", "off"):
+            print(f"  {n}: iters {out[n + '_iters']} feasible "
+                  f"{out[n + '_feasible']} cost {out[n + '_cost']}")
+        print(f"  max |Lxu| at the dt 20 states: "
+              f"{np.abs(out['sp_cd_Lxu']).max(axis=(1, 2))}; mpc tick iters "
+              f"{out['mpc_cl_solve_iters']}")
     if "contacts" in names:
         path = os.path.join(FIXTURES, "torch_port_contacts.npz")
         out = contacts_fixture(missions)
@@ -805,7 +985,7 @@ def main(names):
                   f"{out[n + '_feasible']} cost {out[n + '_cost']}")
         print(f"  esc: xreg {out['esc_xreg']} failed {out['esc_failed']}")
     for name in (n for n in names
-                 if n not in ("offline", "closed_loop", "contacts")):
+                 if n not in ("offline", "closed_loop", "contacts", "rk4")):
         ctrl = ctrls[name]
         out = tick_fixture(ctrl, sim, ref, mp, *TIMES[name], SEEDS[name])
         if name == "flagship":
