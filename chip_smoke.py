@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MPC ticks (Carrot, Weighted, Rail), its
-offline trajectory generation, its closed loop, its contact missions and
-its RK4 integrator on one NVIDIA GPU.
+offline trajectory generation, its closed loop, its contact missions, its
+RK4 integrator and its scale-out layer on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -151,7 +151,51 @@ its seconds):
       B=2); then each kernel against its plain version at the end state of
       step 1, as phase 4 (K1 also at |q| = 1 and 1 +- 1e-7), and K2 also
       with the clip; the kernels' and plain versions' float32 times there,
-      with each kernel's bound.
+      with each kernel's bound;
+10. parallel (the scale-out layer: ``parallel.make_batch_solver``, ranks
+    of ``parallel.worker`` joined by ``torch.distributed``, and
+    ``priccati.parallel_backward_pass``; the launch counts set to 0 just
+    before step 1 and read after it; the count of plain node dynamics on
+    the card must not move across the phase, the comparisons with the
+    plain versions aside):
+    1. the batch path in float32: iris hover (examples/batch_scenarios.py's
+       defaults: B=1024, dt 40 ms, maxiter 60, x0 noise sd 0.05, seed 0;
+       one solve, the kernels warm from the earlier phases) with a
+       feasible fraction >= 0.99, and the
+       flagship offline problem (B=256, phase 6's settings) with every
+       element feasible and finite; solves/s, ms per solve and peak memory
+       printed; every kernel launched; then, after the counts are read,
+       each kernel against its plain version in float64 at each solve's
+       end state (the f32 params, states and controls cast, the final
+       homotopy stage, the whole batch, even elements feasible and odd ones
+       not), K2's diverged lanes filtered as phase 4 does;
+    2. 2 worker ranks on the one card (gloo, ``cuda:0`` each), each
+       materializing its half of a seeded global batch of iris hover
+       starts (dt 200 ms, maxiter 40): in float64 at B=64 their
+       ``all_reduce`` summary, and that of a world of 1 rank under NCCL
+       (its init and collectives) run beside them, equal this process's
+       ``convergence_summary`` of the same 64 starts, solved meanwhile
+       (counts and iterations exactly, the mean cost to rtol 1e-10); in
+       float32 at B=1024 the median solves/s of 3 runs of the 2 ranks,
+       labelled as 2 ranks on one card, not scaling, beside this
+       process's median of 3 runs of the same batch; every rank checks
+       that the port imported no jax, JAX package or ``tools``, and
+       reports its kernel launches, which must all be positive, and its
+       plain node dynamics on the card, which must be none;
+    3. the parallel Riccati pass in float64 against the sequential one
+       (K3): at tests/test_priccati.py's candidates on iris hover at dt
+       100 ms (both ``feasible`` flags, regularization 0 and 1e-3; Vxx and
+       Vx to rtol 1e-8 / atol 1e-8, k, K and Qu to rtol 1e-8 / atol 1e-9)
+       and at dt 2 ms (T=550; k to rtol 1e-6 / atol 1e-7); at the
+       flagship's offline solution (T=132, its last homotopy stage) the
+       largest relative error of each output printed; the flagship's
+       offline solve with ``parallel_riccati=True`` feasible (iterations
+       and cost printed beside the sequential solve's) and iris's
+       ``solve_fddp`` at dt 100 equal to the sequential one's
+       (tests/test_priccati.py's tolerances); then CUDA-event medians in
+       float32 of both passes at the flagship's widths (ndx 18, nu 9) on
+       seeded random data, B=1 and B=64, T in {29, 132, 550, 1100}, and
+       the T from which the parallel pass is faster.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -208,6 +252,21 @@ CONTACT_NOISE = (0.002, 0.02)  # phase 8 parity: sd on the states, controls
 CONTACT_TIGHT_MU = 0.1  # a slippery eagle_catch: the cone's barrier active
 CONTACT_RUNAWAY = 1e3   # phase 8 parity: a lane past it has run away
 TIMING_REPS = 20
+PAR_IRIS_DT = 40       # phase 10: examples/batch_scenarios.py's defaults
+PAR_IRIS_BATCH = 1024
+PAR_IRIS_MAXITER = 60
+PAR_NOISE = 0.05
+PAR_FLAGSHIP_BATCH = 256
+PAR_RANKS = 2          # worker ranks sharing the one card (gloo)
+PAR_F64_BATCH = 64
+PAR_F32_BATCH = 1024
+PAR_REPS = 3
+PAR_FIXTURE = "torch_port_parallel.npz"
+PRICCATI_REGS = (0.0, 1e-3)
+PRICCATI_TOL = {"Vxx": (1e-8, 1e-8), "Vx": (1e-8, 1e-8), "k": (1e-8, 1e-9),
+                "K": (1e-8, 1e-9), "Qu": (1e-8, 1e-9)}   # (rtol, atol)
+PRICCATI_TS = (29, 132, 550, 1100)
+PRICCATI_BS = (1, 64)
 # published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): HBM3
 # bytes/s and float32 FLOP/s outside the tensor cores (the kernels use none)
 PEAK_BYTES_S = 3.35e12
@@ -740,8 +799,8 @@ def phase_offline(device):
 
     from eagle_mpc_tpu_torch.ocp import problem as P
     from eagle_mpc_tpu_torch.ops import node_cuda, riccati_cuda, rollout_cuda
+    from eagle_mpc_tpu_torch.parallel import perturbed_x0_batch
     from eagle_mpc_tpu_torch.solvers import fddp, sbfddp
-    from eagle_mpc_tpu_torch.trajectory import perturbed_x0
 
     mods = {"node_linearization": node_cuda, "riccati_backward": riccati_cuda,
             "alpha_rollout": rollout_cuda}
@@ -796,8 +855,7 @@ def phase_offline(device):
         f"cost {float(ref['cost'])!r}")
 
     # 3. the flagship in f32 at B = 64, x0 perturbed
-    pb = P.expand_params(P.map_params(lambda a: a[0], params32), OFFLINE_BATCH)
-    pb = pb._replace(x0=perturbed_x0(params32.x0[0], OFFLINE_BATCH, 0.05, 0))
+    pb = perturbed_x0_batch(params32, OFFLINE_BATCH, 0.05, 0)
     resb, sec = _solve_timed(lambda: sbfddp.solve(spec32, pb,
                                                   maxiter=OFFLINE_MAXITER))
     end = resb.xs[:, -1, :3].double().cpu().numpy()
@@ -872,10 +930,40 @@ def without_slots(spec, params):
         glob=glob._replace(act_w=(), lb=(), ub=()))
 
 
+def _kernel_parity(spec, params, xs, us, feasible, label, box=False,
+                   kernels=None):
+    """Each kernel (or those named) against its plain version in f64 at
+    (xs, us), K2's diverged lanes filtered as phase 4 does: {kernel: max
+    abs error}."""
+    import torch
+
+    calls = kernel_calls(SimpleNamespace(spec=spec), params, xs, us, feasible,
+                         reg=1e-2, box=box)
+    out = {}
+    for name in kernels or calls:
+        kern, plain = calls[name][:2]
+        got, want = kern(), plain()
+        note = ""
+        if name == "alpha_rollout":
+            lanes = _healthy_lanes(want)
+            check(torch.equal(lanes, _healthy_lanes(got)),
+                  f"{label} alpha_rollout: kernel and plain version disagree "
+                  "on which lanes diverge")
+            note = f", {int(lanes.sum())} of {lanes.numel()} lanes healthy"
+            got, want = [g[lanes] for g in got], [w[lanes] for w in want]
+        errs = [_err(w, g) for w, g in zip(want, got)]
+        abs_err, rel_err = max(e[0] for e in errs), max(e[1] for e in errs)
+        say(f"{label} parity f64 {name} (B={xs.shape[0]}, T={spec.T}): max abs "
+            f"{abs_err:.3e}, max rel {rel_err:.3e}{note} (gate {PARITY_RTOL:g})")
+        check(rel_err <= PARITY_RTOL, f"{label} {name}: kernel differs from "
+              f"its plain version ({rel_err:.3e} > {PARITY_RTOL:g})")
+        out[name] = abs_err
+    return out
+
+
 def _offline_parity(spec, params, state, label, box, kernels=None):
-    """Each kernel against its plain version in f64 at a solved state tiled
-    to B = 2 (element 0 feasible, element 1 not, so both gap branches
-    run)."""
+    """:func:`_kernel_parity` at a solved state tiled to B = 2 (element 0
+    feasible, element 1 not, so both gap branches run)."""
     import torch
 
     from eagle_mpc_tpu_torch.ocp import problem as P
@@ -883,26 +971,8 @@ def _offline_parity(spec, params, state, label, box, kernels=None):
     xs, us = (torch.cat([a, a]) for a in state)
     pb = P.map_params(lambda a: torch.cat([a, a]), params)
     feasible = torch.tensor([True, False], device=xs.device)
-    calls = kernel_calls(SimpleNamespace(spec=spec), pb, xs, us, feasible,
-                         reg=1e-2, box=box)
-    out = {}
-    for name in kernels or calls:
-        kern, plain = calls[name][:2]
-        got, want = kern(), plain()
-        if name == "alpha_rollout":
-            lanes = _healthy_lanes(want)
-            check(torch.equal(lanes, _healthy_lanes(got)),
-                  f"{label} alpha_rollout: kernel and plain version disagree "
-                  "on which lanes diverge")
-            got, want = [g[lanes] for g in got], [w[lanes] for w in want]
-        errs = [_err(w, g) for w, g in zip(want, got)]
-        abs_err, rel_err = max(e[0] for e in errs), max(e[1] for e in errs)
-        say(f"{label} parity f64 {name} (T={spec.T}): max abs {abs_err:.3e}, "
-            f"max rel {rel_err:.3e} (gate {PARITY_RTOL:g})")
-        check(rel_err <= PARITY_RTOL, f"{label} {name}: kernel differs from "
-              f"its plain version ({rel_err:.3e} > {PARITY_RTOL:g})")
-        out[name] = {"max_abs_err": abs_err}
-    return out
+    errs = _kernel_parity(spec, pb, xs, us, feasible, label, box, kernels)
+    return {name: {"max_abs_err": e} for name, e in errs.items()}
 
 
 def _offline_times(spec, params, state, stats):
@@ -1253,8 +1323,8 @@ def phase_contacts(device):
 
     from eagle_mpc_tpu_torch.ocp import problem as P
     from eagle_mpc_tpu_torch.ops import node_cuda, riccati_cuda, rollout_cuda
+    from eagle_mpc_tpu_torch.parallel import perturbed_x0_batch
     from eagle_mpc_tpu_torch.solvers import sbfddp
-    from eagle_mpc_tpu_torch.trajectory import perturbed_x0
 
     mods = {"node_linearization": node_cuda, "riccati_backward": riccati_cuda,
             "alpha_rollout": rollout_cuda}
@@ -1310,8 +1380,7 @@ def phase_contacts(device):
     # 2. float32 at B = 1 and B = OFFLINE_BATCH (x0 perturbed)
     for key, (mission, dt_ms) in CONTACT_MISSIONS.items():
         spec32, p32 = contact_problem(device, f32, mission, dt_ms)
-        pb = P.expand_params(P.map_params(lambda a: a[0], p32), OFFLINE_BATCH)
-        pb = pb._replace(x0=perturbed_x0(p32.x0[0], OFFLINE_BATCH, 0.05, 0))
+        pb = perturbed_x0_batch(p32, OFFLINE_BATCH, 0.05, 0)
         for B, params in ((1, p32), (OFFLINE_BATCH, pb)):
             res, sec = _solve_timed(lambda: sbfddp.solve(
                 spec32, params, maxiter=CONTACT_MAXITER))
@@ -1398,8 +1467,8 @@ def _rk4_offline(device, mods):
     import torch
 
     from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.parallel import perturbed_x0_batch
     from eagle_mpc_tpu_torch.solvers import sbfddp
-    from eagle_mpc_tpu_torch.trajectory import perturbed_x0
 
     fx = np.load(os.path.join(ROOT, "tests", "fixtures", FIXTURES["rk4"]))
     spec, params = offline_problem(device, torch.float64, "iris", "hover", 60,
@@ -1420,10 +1489,7 @@ def _rk4_offline(device, mods):
     spec, params = offline_problem(device, torch.float32, integrator=RK4)
     sbfddp.solve(spec, params, maxiter=OFFLINE_MAXITER)
     for B in (1, OFFLINE_BATCH):
-        pb = params
-        if B > 1:
-            pb = P.expand_params(P.map_params(lambda a: a[0], params), B)
-            pb = pb._replace(x0=perturbed_x0(params.x0[0], B, 0.05, 0))
+        pb = perturbed_x0_batch(params, B, 0.05, 0) if B > 1 else params
         res, sec = _solve_timed(lambda: sbfddp.solve(spec, pb,
                                                      maxiter=OFFLINE_MAXITER))
         it = int(res.iters.max())
@@ -1506,6 +1572,340 @@ def phase_rk4(device):
     stats["alpha_rollout"]["clip_max_abs_err"] = stats.pop(
         "alpha_rollout (clip)")["max_abs_err"]
     return launches, per_tick, stats
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the scale-out layer (batches, ranks, the parallel Riccati pass)
+# ---------------------------------------------------------------------------
+
+def _par_batch(device):
+    """Step 1 of phase 10: ``make_batch_solver`` on the example's workload
+    and on the flagship offline problem. Returns {label: (spec, batch
+    params, result)}."""
+    import torch
+
+    from eagle_mpc_tpu_torch.parallel import (convergence_summary,
+                                              make_batch_solver,
+                                              perturbed_x0_batch)
+
+    f32 = torch.float32
+    solved = {}
+    for label, args, B, maxiter in (
+            ("iris hover", (f32, "iris", "hover", PAR_IRIS_DT), PAR_IRIS_BATCH,
+             PAR_IRIS_MAXITER),
+            ("flagship", (f32,), PAR_FLAGSHIP_BATCH, OFFLINE_MAXITER)):
+        spec, params = offline_problem(device, *args)
+        pb = perturbed_x0_batch(params, B, PAR_NOISE, 0)
+        solve = make_batch_solver(spec, maxiter=maxiter)
+        torch.cuda.reset_peak_memory_stats()
+        res, sec = _solve_timed(lambda: solve(pb))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        s = convergence_summary(res)
+        say(f"parallel batch {label} f32 B={B} T={spec.T}: "
+            f"{sec * 1e3:.1f} ms, {B / sec:.1f} solves/s, "
+            f"{sec * 1e3 / B:.4f} ms per solve, peak memory {peak:.1f} MiB, "
+            f"summary {json.dumps(s)}")
+        finite = (bool(torch.isfinite(res.xs).all())
+                  and bool(torch.isfinite(res.cost).all()))
+        if label == "flagship":
+            check(bool(res.feasible.all()) and finite,
+                  f"parallel batch flagship B={B}: not every element feasible "
+                  "and finite")
+        else:
+            check(s["feasible_frac"] >= 0.99,
+                  f"parallel batch {label} B={B}: feasible fraction {s}")
+        solved[label] = (spec, pb, res)
+    return solved
+
+
+def _par_batch_parity(solved):
+    """:func:`_kernel_parity` at the end state of each batch solve of step
+    1, in f64 on the whole batch at its last homotopy stage (even elements
+    feasible, odd ones not): {kernel: {label: max abs error}}."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.solvers import sbfddp
+
+    f64 = torch.float64
+    wide = lambda a: a.to(f64) if a.is_floating_point() else a
+    out = {}
+    for label, (spec, pb, res) in solved.items():
+        params = sbfddp._set_homotopy(spec, P.map_params(wide, pb),
+                                      float(res.smooth[0]))
+        xs = res.xs.to(f64)
+        feasible = torch.arange(xs.shape[0], device=xs.device) % 2 == 0
+        errs = _kernel_parity(spec, params, xs, res.us.to(f64), feasible,
+                              f"parallel batch {label}")
+        for name, e in errs.items():
+            out.setdefault(name, {})[label] = e
+    return out
+
+
+def _par_ranks(device):
+    """Step 2 of phase 10: ranks of ``parallel.worker`` sharing the card."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from eagle_mpc_tpu_torch.parallel import (convergence_summary,
+                                              make_batch_solver,
+                                              perturbed_x0_batch, scaling,
+                                              worker)
+
+    def one_process(dtype, B, reps=0):
+        """(summary, median seconds) of the worker's batch solved here."""
+        spec, params = offline_problem(device, dtype, "iris", "hover",
+                                       worker.DT_MS)
+        pb = perturbed_x0_batch(params, B, worker.NOISE, 0)
+        if reps:
+            make_batch_solver(spec, maxiter=1)(pb)   # as the worker warms up
+        times = []
+        for _ in range(max(reps, 1)):
+            res, sec = _solve_timed(lambda: make_batch_solver(
+                spec, maxiter=worker.MAXITER)(pb))
+            s = convergence_summary(res)
+            times.append(sec)
+        return s, float(np.median(times))
+
+    def on_kernels(label, r):
+        """A rank on the card launched K1, K2 and K3 and evaluated no plain
+        node dynamics there."""
+        check(r["topo"]["device"].startswith("cuda"),
+              f"parallel ranks ({label}): rank on {r['topo']['device']}")
+        for n, c in r["launches"].items():
+            check(c > 0, f"parallel ranks ({label}): rank "
+                  f"{r['topo']['process_index']}: {n}: no kernel launch")
+        check(r["plain_on_card"] == 0, f"parallel ranks ({label}): rank "
+              f"{r['topo']['process_index']}: {r['plain_on_card']} plain node "
+              "dynamics ran on the card")
+
+    # f64: 2 ranks under gloo and a world of 1 under NCCL, while this
+    # process solves the same 64 starts
+    t0 = time.time()
+    with ThreadPoolExecutor(2) as ex:
+        jobs = {label: ex.submit(scaling.run_job, n, PAR_F64_BATCH,
+                                 device="cuda", backend=backend,
+                                 dtype="float64", timeout=300)
+                for label, n, backend in (("2 ranks, gloo", PAR_RANKS, "gloo"),
+                                          ("1 rank, nccl", 1, "nccl"))}
+        want = one_process(torch.float64, PAR_F64_BATCH)[0]
+        ranks = {label: job.result() for label, job in jobs.items()}
+    say(f"parallel ranks f64 B={PAR_F64_BATCH}: one process "
+        f"{json.dumps(want)} ({time.time() - t0:.1f} s)")
+    for label, results in ranks.items():
+        for r in results:
+            got = r["summary"]
+            say(f"parallel ranks f64 ({label}): rank "
+                f"{r['topo']['process_index']} of {r['topo']['process_count']}"
+                f" on {r['topo']['device']} ({r['topo']['backend']}), "
+                f"{r['local_rows']} rows, launches {json.dumps(r['launches'])}"
+                f", plain on the card {r['plain_on_card']}, summary "
+                f"{json.dumps(got)}")
+            on_kernels(f"f64, {label}", r)
+            for k in ("n", "feasible_frac", "failed_frac", "iters_mean",
+                      "iters_max"):
+                check(got[k] == want[k], f"parallel ranks f64 ({label}): {k} "
+                      f"{got[k]} against one process's {want[k]}")
+            check(abs(got["cost_mean"] - want["cost_mean"])
+                  <= 1e-10 * abs(want["cost_mean"]),
+                  f"parallel ranks f64 ({label}): cost_mean "
+                  f"{got['cost_mean']!r} against one process's "
+                  f"{want['cost_mean']!r} (rtol 1e-10)")
+    # f32: the median solves/s of 2 ranks beside one process's
+    t0 = time.time()
+    ranks = scaling.run_job(PAR_RANKS, PAR_F32_BATCH, reps=PAR_REPS,
+                            device="cuda", backend="gloo", dtype="float32",
+                            timeout=300)
+    r = ranks[0]
+    for x in ranks:
+        on_kernels("f32", x)
+    check(all(x["summary"] == r["summary"] for x in ranks),
+          "parallel ranks f32: the ranks' summaries differ")
+    check(r["summary"]["feasible_frac"] >= 0.99,
+          f"parallel ranks f32: {r['summary']}")
+    t1 = time.time()
+    s1, sec1 = one_process(torch.float32, PAR_F32_BATCH, PAR_REPS)
+    name = torch.cuda.get_device_name(0)
+    say(f"parallel ranks f32 B={PAR_F32_BATCH} ({PAR_RANKS} ranks on one "
+        f"{name}; not scaling; gloo): median {r['median_s'] * 1e3:.1f} ms of "
+        f"{PAR_REPS}, {r['solves_per_s']:.1f} solves/s, summary "
+        f"{json.dumps(r['summary'])} ({t1 - t0:.1f} s); one process: median "
+        f"{sec1 * 1e3:.1f} ms, {PAR_F32_BATCH / sec1:.1f} solves/s, summary "
+        f"{json.dumps(s1)} ({time.time() - t1:.1f} s)")
+
+
+def _riccati_candidate(spec, params, seed):
+    """tests/test_priccati.py's ``_candidate``: (xs, us) batched at B=1."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    T = spec.T
+    xs = np.tile(params.x0[0].cpu().numpy(), (T + 1, 1))
+    xs[:, :3] += 0.1 * rng.standard_normal((T + 1, 3))
+    xs[:, 7:] += 0.05 * rng.standard_normal((T + 1, xs.shape[1] - 7))
+    us = 0.1 * rng.standard_normal((T, spec.nu))
+    dev, dt = params.x0.device, params.x0.dtype
+    return (torch.as_tensor(xs, dtype=dt, device=dev)[None],
+            torch.as_tensor(us, dtype=dt, device=dev)[None])
+
+
+def _riccati_pair(spec, params, xs, us, feasible, reg):
+    """(parallel pass, sequential pass through K3) at one candidate."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.solvers import fddp, priccati
+
+    dev, dt = xs.device, xs.dtype
+    derivs, term = P.calc_diff_all(spec, params, xs, us)
+    feas = torch.tensor([feasible], device=dev)
+    fs = fddp._gaps(spec, params, xs, derivs.xnext, feas)
+    r = torch.full((1,), reg, dtype=dt, device=dev)
+    return (priccati.parallel_backward_pass(spec, derivs, term, fs, r, r, feas),
+            fddp._backward_pass(spec, derivs, term, fs, r, r, feas))
+
+
+def _par_riccati(device):
+    """Step 3 of phase 10: ``priccati.parallel_backward_pass`` against the
+    sequential pass (K3), its solves, and the T-crossover."""
+    import torch
+
+    from eagle_mpc_tpu_torch.solvers import fddp, priccati, sbfddp
+
+    f64, f32 = torch.float64, torch.float32
+    fx = np.load(os.path.join(ROOT, "tests", "fixtures", PAR_FIXTURE))
+    # a. tests/test_priccati.py's candidates on iris hover, dt 100
+    spec, params = offline_problem(device, f64, "iris", "hover", 100)
+    xs, us = (torch.as_tensor(fx[k], dtype=f64, device=device)[None]
+              for k in ("pr_xs", "pr_us"))
+    for feasible in (False, True):
+        for reg in PRICCATI_REGS:
+            par, seq = _riccati_pair(spec, params, xs, us, feasible, reg)
+            check(bool(par.ok.all()) and bool(seq.ok.all()),
+                  f"priccati iris feasible {feasible} reg {reg:g}: not ok")
+            worst = {}
+            for n, (rtol, atol) in PRICCATI_TOL.items():
+                a, b = getattr(par, n), getattr(seq, n)
+                excess = ((a - b).abs() - atol - rtol * b.abs()).max().item()
+                worst[n] = (a - b).abs().max().item()
+                check(excess <= 0, f"priccati iris feasible {feasible} reg "
+                      f"{reg:g}: {n} differs from K3's pass (rtol {rtol:g} "
+                      f"atol {atol:g})")
+            say(f"priccati f64 iris T={spec.T} feasible {feasible} reg "
+                f"{reg:g}: max |parallel - K3| "
+                + ", ".join(f"{n} {v:.3e}" for n, v in worst.items()))
+    # iris dt 2 (T=550), tests/test_priccati.py's long horizon
+    spec2, params2 = offline_problem(device, f64, "iris", "hover", 2)
+    xs2, us2 = _riccati_candidate(spec2, params2, 1)
+    par, seq = _riccati_pair(spec2, params2, xs2, us2, False, 1e-9)
+    excess = ((par.k - seq.k).abs() - 1e-7 - 1e-6 * seq.k.abs()).max().item()
+    say(f"priccati f64 iris T={spec2.T}: ok {bool(par.ok[0])}, max |k "
+        f"parallel - K3| {(par.k - seq.k).abs().max().item():.3e}")
+    check(spec2.T >= 500 and bool(par.ok.all()) and excess <= 0,
+          f"priccati iris T={spec2.T}: k differs from K3's pass (rtol 1e-6 "
+          "atol 1e-7)")
+
+    # b. the flagship at the offline reference's solution, last stage
+    specf, paramsf = offline_problem(device, f64)
+    st = sbfddp.SbFddpSettings()
+    pf = sbfddp._set_homotopy(specf, paramsf, st.smooth_init
+                              * st.smooth_mult ** (st.n_stages - 1))
+    ref = np.load(os.path.join(ROOT, "missions", "refs",
+                               f"{ROBOT}__{MISSION}__dt{DT_REF}.npz"))
+    xsf, usf = (torch.as_tensor(ref[k], dtype=f64, device=device)[None]
+                for k in ("xs", "us"))
+    for feasible in (True, False):
+        par, seq = _riccati_pair(specf, pf, xsf, usf, feasible, 1e-9)
+        rel = {n: _err(getattr(seq, n), getattr(par, n))[1]
+               for n in ("k", "K", "Qu", "Quuk", "Vx", "Vxx")}
+        say(f"priccati f64 flagship T={specf.T} at the offline solution "
+            f"(feasible {feasible}): ok {bool(par.ok[0])} / {bool(seq.ok[0])}"
+            f", largest error relative to each output's max |entry|: "
+            + ", ".join(f"{n} {v:.3e}" for n, v in rel.items()))
+
+    # c. the solves with parallel_riccati=True
+    pset = fddp.SolverSettings(parallel_riccati=True)
+    res, sec = _solve_timed(lambda: sbfddp.solve(
+        specf, paramsf, maxiter=OFFLINE_MAXITER,
+        settings=sbfddp.SbFddpSettings(solver=pset)))
+    say(f"priccati offline flagship f64 B=1: {sec:.3f} s, iters "
+        f"{int(res.iters[0])} (sequential pass: {int(ref['iters'])}), cost "
+        f"{float(res.cost[0])!r} (sequential: {float(ref['cost'])!r}), "
+        f"feasible {bool(res.feasible[0])}")
+    check(bool(res.feasible[0]) and not bool(res.failed[0]),
+          "priccati offline flagship f64: not feasible")
+    xs0, us0 = fddp.default_init(spec, params)
+    full = {kind: fddp.solve_fddp(spec, s, params, xs0, us0, 30, 1e-9)
+            for kind, s in (("par", pset), ("seq", fddp.SolverSettings()))}
+    p, q = full["par"], full["seq"]
+    say(f"priccati iris f64 solve_fddp: parallel iters {int(p.iters[0])} cost "
+        f"{float(p.cost[0])!r}, sequential iters {int(q.iters[0])} cost "
+        f"{float(q.cost[0])!r}, max |xs diff| "
+        f"{(p.xs - q.xs).abs().max().item():.3e}")
+    check(bool(p.feasible[0]) == bool(q.feasible[0]),
+          "priccati iris solve: feasibility differs")
+    check(abs(float(p.cost[0]) - float(q.cost[0]))
+          <= 1e-8 + 1e-6 * abs(float(q.cost[0])), "priccati iris solve: cost "
+          "differs from the sequential solve's")
+    check(bool(((p.xs - q.xs).abs() <= 1e-6 + 1e-4 * q.xs.abs()).all()),
+          "priccati iris solve: xs differ from the sequential solve's")
+
+    # d. times in f32: the parallel pass against K3's, flagship widths
+    dims = SimpleNamespace(nu=specf.nu, state=SimpleNamespace(
+        ndx=specf.state.ndx))
+    rows = {}
+    for B in PRICCATI_BS:
+        for T in PRICCATI_TS:
+            derivs, term, fs = priccati.random_lqr(B, T, dims.state.ndx,
+                                                   dims.nu, T, f32, device)
+            reg = torch.full((B,), 1e-9, dtype=f32, device=device)
+            feas = torch.zeros(B, dtype=torch.bool, device=device)
+            args = (dims, derivs, term, fs, reg, reg, feas)
+            par_ms = _time_ms(lambda: priccati.parallel_backward_pass(*args))
+            seq_ms = _time_ms(lambda: fddp._backward_pass(*args))
+            ok = bool(priccati.parallel_backward_pass(*args).ok.all())
+            rows[B, T] = (par_ms, seq_ms)
+            say(f"priccati time f32 B={B} T={T} (ndx {dims.state.ndx}, nu "
+                f"{dims.nu}): parallel {par_ms:.3f} ms, sequential (K3) "
+                f"{seq_ms:.3f} ms, ratio {par_ms / seq_ms:.2f}, parallel ok "
+                f"{ok} (medians of {TIMING_REPS})")
+        cross = [T for T in PRICCATI_TS if rows[B, T][0] < rows[B, T][1]]
+        say(f"priccati crossover f32 B={B}: "
+            + (f"the parallel pass is faster from T={cross[0]}" if cross
+               else f"none up to {PRICCATI_TS[-1]}"))
+
+
+def phase_parallel(device):
+    """The scale-out layer (module docstring, phase 10). Returns the
+    launches per kernel in step 1 and {kernel: {label: max abs error}} of
+    its parity at the batch solves' end states."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.ops import node_cuda, riccati_cuda, rollout_cuda
+
+    mods = {"node_linearization": node_cuda, "riccati_backward": riccati_cuda,
+            "alpha_rollout": rollout_cuda}
+    plain0 = P.PLAIN_ON_CARD
+    for m in mods.values():
+        m.LAUNCHES = 0
+    solved = _par_batch(device)
+    torch.cuda.synchronize()
+    launches = {n: m.LAUNCHES for n, m in mods.items()}
+    say(f"parallel launches during the batch path: {json.dumps(launches)}")
+    for n in mods:
+        check(launches[n] > 0, f"parallel: {n}: no kernel launch")
+    check(P.PLAIN_ON_CARD == plain0, f"parallel: {P.PLAIN_ON_CARD - plain0} "
+          "plain node dynamics ran on the card in the batch path")
+    errs = _par_batch_parity(solved)   # the plain versions run on the card
+    del solved
+    plain0 = P.PLAIN_ON_CARD
+    _par_ranks(device)
+    _par_riccati(device)
+    check(P.PLAIN_ON_CARD == plain0, f"parallel: {P.PLAIN_ON_CARD - plain0} "
+          "plain node dynamics ran on the card")
+    return launches, errs
 
 
 # ---------------------------------------------------------------------------
@@ -1656,6 +2056,9 @@ def main():
     t_phase = time.time()
     rk4_launches, rk4_per_tick, rk4_stats = phase_rk4(device)
     say(f"phase rk4: {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    par_launches, par_errs = phase_parallel(device)
+    say(f"phase parallel: {time.time() - t_phase:.1f} s")
     foreign = sorted(m for m in sys.modules
                      if m in ("jax", "eagle_mpc_tpu", "tools")
                      or m.startswith(("jax.", "eagle_mpc_tpu.", "tools.")))
@@ -1670,7 +2073,8 @@ def main():
                                    offline=off_launches[name],
                                    closed_loop=cl_launches[name],
                                    contacts=con_launches[name],
-                                   rk4=rk4_launches[name]),
+                                   rk4=rk4_launches[name],
+                                   parallel=par_launches[name]),
          "max_abs_err": main_stats[name]["max_abs_err"],
          "ms": main_stats[name]["ms"], "plain_ms": main_stats[name]["plain_ms"],
          "bound_ms": main_stats[name]["bound_ms"],
@@ -1680,6 +2084,7 @@ def main():
          "offline": {k: off_stats[name][k] for k in
                      ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "closed_loop_max_abs_err": cl_stats[name]["max_abs_err"],
+         "parallel_max_abs_err": par_errs[name],
          "contacts": {CONTACT_MISSIONS[key][0]: con_stats[key][name]
                       for key in CONTACT_MISSIONS},
          "rk4": dict({k: rk4_stats[name][k] for k in

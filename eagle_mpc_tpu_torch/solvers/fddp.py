@@ -6,7 +6,8 @@ becomes per-element masks, each element frozen once it stops.
 
 - Direction: node linearization (kernel K1), gaps, Riccati backward pass
   (kernel K3; the Box-DDP pass with its box QP stays plain, as in the
-  reference package).
+  reference package; with ``parallel_riccati`` the while-loop solver's
+  non-box pass is the log-depth scan of ``solvers.priccati``).
 - Line search: the whole alpha ladder rolled out at once (kernel K2) and
   the first accepted alpha per element, which is the reference's
   sequential early-exit choice since alphas descend.
@@ -51,6 +52,8 @@ class SolverSettings:
     reg_factor: float = 10.0
     th_stop_gaps: float = 1.0
     boxqp_iters: int = 12         # projected-Newton iterations (box solvers)
+    parallel_riccati: bool = False  # log-depth scan backward pass on the
+                                    # while-loop path (solvers/priccati.py)
     record_trace: bool = False    # return per-iteration IterTrace telemetry
     # deviation switches: the reference's (Crocoddyl's) semantics, selectable
     # so tests can pin the failure modes the defaults prevent
@@ -286,11 +289,23 @@ def _compute_direction(spec, settings, params, xs, us, feasible, xreg, ureg,
     derivatives below reg_max, that element's regularization grows by
     reg_factor and the pass runs again; an element whose pass is ok keeps
     its result. Non-finite derivatives fail fast (no escalation).
-    Returns (cost, fs, bp, xreg, ureg, failed)."""
+    With ``settings.parallel_riccati`` a non-box pass is
+    ``priccati.parallel_backward_pass``. Returns (cost, fs, bp, xreg, ureg,
+    failed)."""
     derivs, term, cost, fs, derivs_ok = _linearize(spec, params, xs, us,
                                                    feasible)
     info = _box_info(settings, params, us, box)
-    bp = _backward_pass(spec, derivs, term, fs, xreg, ureg, feasible, info)
+    if settings.parallel_riccati and info is None:
+        from . import priccati
+
+        def run_bp(xr, ur):
+            return priccati.parallel_backward_pass(spec, derivs, term, fs, xr,
+                                                   ur, feasible)
+    else:
+        def run_bp(xr, ur):
+            return _backward_pass(spec, derivs, term, fs, xr, ur, feasible,
+                                  info)
+    bp = run_bp(xreg, ureg)
     f, hi = settings.reg_factor, settings.reg_max
     while True:
         retry = ~bp.ok & derivs_ok & (xreg < hi)
@@ -298,8 +313,7 @@ def _compute_direction(spec, settings, params, xs, us, feasible, xreg, ureg,
             break
         xreg = torch.where(retry, torch.clamp(xreg * f, max=hi), xreg)
         ureg = torch.where(retry, torch.clamp(ureg * f, max=hi), ureg)
-        bp = _select(retry, _backward_pass(spec, derivs, term, fs, xreg, ureg,
-                                           feasible, info), bp)
+        bp = _select(retry, run_bp(xreg, ureg), bp)
     return cost, fs, bp, xreg, ureg, ~bp.ok
 
 
@@ -561,6 +575,18 @@ def solve_box_ddp(spec, settings, params, xs_init, us_init, maxiter, th_stop,
 # The fixed iteration (the MPC tick)
 # ---------------------------------------------------------------------------
 
+def _check_fixed_settings(settings: SolverSettings) -> None:
+    """The fixed-depth path always runs the sequential pass (K3); silently
+    ignoring ``parallel_riccati`` would give a caller another pass than the
+    one asked for."""
+    if settings.parallel_riccati:
+        raise ValueError(
+            "parallel_riccati is not supported on the fixed-depth solver "
+            "path (solve_fixed / solve_while_fixed_body / sbfddp.solve_fixed)"
+            " — it always uses the sequential pass (kernel K3). Use "
+            "solve_fddp_or_ddp for the log-depth scan.")
+
+
 def _fixed_iteration(spec, settings, params, s: _Carry, ddp: bool, th_stop,
                      n_alphas: int, box: bool = False) -> _Carry:
     """One fixed-shape iteration: a failed backward pass escalates the
@@ -637,7 +663,9 @@ def solve_fixed(spec, settings: SolverSettings, params, xs, us, depth: int,
     reference package's ``solve_fixed_batched``). ``maxiter``: None (=
     depth) or a (B,) budget. Iterations after every element has stopped are
     skipped; they would change nothing. ``final_cost_fallback`` as in
-    :func:`solve_fddp_or_ddp`."""
+    :func:`solve_fddp_or_ddp`. ``settings.parallel_riccati`` raises
+    ``ValueError``."""
+    _check_fixed_settings(settings)
     P.check_scope(spec)
     full_precision_matmul()
     n_alphas = settings.n_alphas if n_alphas is None else n_alphas
@@ -660,7 +688,9 @@ def solve_while_fixed_body(spec, settings: SolverSettings, params, xs, us,
                            n_alphas: Optional[int] = None) -> SolveResult:
     """Early-exit loop over the fixed iteration: runs while any element is
     active (it < maxiter, not done, not failed), each element frozen once
-    it stops. ``maxiter``: (B,) budgets."""
+    it stops. ``maxiter``: (B,) budgets. ``settings.parallel_riccati``
+    raises ``ValueError``."""
+    _check_fixed_settings(settings)
     P.check_scope(spec)
     full_precision_matmul()
     n_alphas = settings.n_alphas if n_alphas is None else n_alphas

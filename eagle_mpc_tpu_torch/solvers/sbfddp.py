@@ -173,11 +173,13 @@ def solve_fixed(spec: P.ProblemSpec, params: P.ProblemParams, xs, us,
     default, as in the JAX package), ``while_fixed`` (early-exit loop over
     the fixed iteration; the bench's tick), ``fixed`` (``depth`` masked
     iterations with the full alpha ladder; the warm start) or ``none``.
-    ``polish_maxiter`` caps its budget below ``depth``."""
+    ``polish_maxiter`` caps its budget below ``depth``. The fixed-depth
+    path refuses ``settings.solver.parallel_riccati`` (``ValueError``)."""
     if polish not in ("while", "while_fixed", "fixed", "none"):
         raise ValueError(
             f"polish must be while|while_fixed|fixed|none, got {polish!r}")
     settings = settings or SbFddpSettings()
+    fddp._check_fixed_settings(settings.solver)
     B, device = xs.shape[0], xs.device
     n = settings.n_stages
     smooths = [settings.smooth_init * settings.smooth_mult ** k

@@ -17,7 +17,8 @@ host in float64 after the solve.
 
 - ``--verbose`` prints the per-iteration trace of element 0;
 - ``--batch B`` solves B copies at once, x0 perturbed by seeded normal
-  noise (sd ``--noise``, quaternion block untouched; element 0 too);
+  noise (sd ``--noise``, quaternion block untouched; element 0 too;
+  ``parallel.batch.perturbed_x0_batch``);
 - ``--out`` writes ``xs``, ``us``, ``us_squash``, ``dt_ms``, ``cost`` and
   ``iters`` (element 0 at B = 1, the batch otherwise).
 
@@ -36,18 +37,11 @@ import torch
 
 from .config import load_trajectory
 from .ocp import problem as P
+from .parallel.batch import perturbed_x0_batch
 from .solvers import fddp, sbfddp
 
 MISSIONS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "missions")
-
-
-def perturbed_x0(x0, batch: int, noise: float, seed: int):
-    """(B, nx) copies of x0 with seeded normal noise off the quaternion."""
-    rng = np.random.default_rng(seed)
-    d = rng.normal(size=(batch, x0.shape[-1])) * noise
-    d[:, 3:7] = 0.0
-    return x0 + torch.as_tensor(d, dtype=x0.dtype, device=x0.device)
 
 
 def main(argv=None) -> int:
@@ -76,10 +70,8 @@ def main(argv=None) -> int:
     spec, params = P.from_trajectory(traj, dt_ms=args.dt, use_squash=True,
                                      integrator="IntegratedActionModelEuler",
                                      dtype=dtype, device=device)
-    pb = P.expand_params(params, args.batch)
-    if args.batch > 1:
-        pb = pb._replace(x0=perturbed_x0(params.x0, args.batch, args.noise,
-                                         args.seed))
+    pb = (perturbed_x0_batch(params, args.batch, args.noise, args.seed)
+          if args.batch > 1 else P.expand_params(params, 1))
     print(f"{args.robot}/{args.mission}: T={spec.T} nodes, dt={args.dt} ms, "
           f"nx={spec.model.nx}, nu={spec.nu}, {len(spec.slots)} cost slots, "
           f"{len(spec.contacts)} contacts, B={args.batch}, {dtype}, {device}",

@@ -152,10 +152,32 @@ with ``integrator="IntegratedActionModelRK4"``):
   at the contact fixture's solution, hang nodes 1 and 15 and the free
   node 35.
 
-Compiling the solvers takes a few minutes on a CPU (about 2 minutes per
-controller). Regenerate all seven, or the ones named, with
+The scale-out layer (``torch_port_parallel.npz``, ``parallel``), iris
+hover at dt 100 ms (T = 11):
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship weighted rail offline closed_loop contacts rk4]
+- ``batch_*``: ``parallel.make_batch_solver(spec, maxiter=20)`` on
+  ``perturbed_x0_batch(params, 8, scale=0.02)`` (``batch_x0``), its
+  ``convergence_summary`` (``summary_*``) and the same solve with element
+  3's x0 NaN (``nan_*``);
+- ``pr_*``: tests/test_priccati.py's candidate, its node derivatives and
+  gaps, and ``priccati.parallel_backward_pass`` and
+  ``fddp._backward_pass`` there for both ``feasible`` flags and
+  regularization 0 and 1e-3;
+- ``flag_*``: the same two passes (reg 1e-9, infeasible) at the flagship
+  offline reference's solution (missions/refs, dt 30, T = 132) at its
+  last homotopy stage, with its node derivatives;
+- ``full_*``: ``fddp.solve_fddp`` from ``default_init`` (maxiter 30,
+  th_stop 1e-9) with ``parallel_riccati`` True (``full_par_*``) and
+  False (``full_seq_*``);
+- ``worker_*``: tests/distributed_worker.py's global batch (iris hover at
+  dt 200 ms, 8 starts of seed-0 noise, sd 0.03) solved in one process by
+  ``sbfddp.solve`` (maxiter 40) under vmap, per element and its
+  ``convergence_summary`` (``worker_summary_*``).
+
+Compiling the solvers takes a few minutes on a CPU (about 2 minutes per
+controller). Regenerate all eight, or the ones named, with
+
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship weighted rail offline closed_loop contacts rk4 parallel]
 
 (``closed_loop`` reads ``torch_port_flagship.npz``, ``rk4`` reads
 ``torch_port_closed_loop.npz`` and ``torch_port_contacts.npz``.)
@@ -451,6 +473,7 @@ print(json.dumps(dict(iters=int(r.iters), cost=float(r.cost),
 """
 
 
+PRICCATI_REGS = (0.0, 1e-3)  # the parallel fixture's regularizations
 B64_REPLICAS = 4  # round-off copies of the f32 B=64 starts (contacts)
 B64_F32 = """
 import json, os, sys
@@ -904,6 +927,117 @@ def rk4_fixture(missions, mp, traj, ref, sim):
     return out
 
 
+def parallel_fixture(missions):
+    """The scale-out layer's JAX values (module docstring)."""
+    import jax
+    import jax.numpy as jnp
+
+    from eagle_mpc_tpu.config import specs
+    from eagle_mpc_tpu.ocp import problem as P
+    from eagle_mpc_tpu.parallel import (convergence_summary,
+                                        make_batch_solver, perturbed_x0_batch)
+    from eagle_mpc_tpu.solvers import fddp, priccati, sbfddp
+
+    traj = specs.load_trajectory("iris/trajectories/hover.yaml",
+                                 yaml_dir=missions)
+    spec, params = P.from_trajectory(traj, dt_ms=100, use_squash=True,
+                                     integrator="IntegratedActionModelEuler")
+    host = lambda a: np.asarray(a)
+    fields = ("xs", "us", "iters", "feasible", "failed", "cost")
+    out = {"x0": host(params.x0)}
+
+    bp = perturbed_x0_batch(params, 8, scale=0.02)
+    out["batch_x0"] = host(bp.x0)
+    solve = make_batch_solver(spec, maxiter=20)
+    res = solve(bp)
+    out.update({f"batch_{n}": host(getattr(res, n)) for n in fields})
+    out.update({f"summary_{k}": np.asarray(v)
+                for k, v in convergence_summary(res).items()})
+    x0 = np.array(bp.x0)
+    x0[3] = np.nan
+    res = solve(bp._replace(x0=jnp.asarray(x0)))
+    out.update({f"nan_{n}": host(getattr(res, n)) for n in fields})
+
+    # tests/test_priccati.py's candidate
+    rng = np.random.default_rng(0)
+    T = spec.T
+    xs = np.tile(np.asarray(params.x0), (T + 1, 1))
+    xs[:, :3] += 0.1 * rng.standard_normal((T + 1, 3))
+    xs[:, 7:] += 0.05 * rng.standard_normal((T + 1, xs.shape[1] - 7))
+    us = 0.1 * rng.standard_normal((T, spec.nu))
+    xs, us = jnp.asarray(xs), jnp.asarray(us)
+    derivs, term = P.calc_diff_all(spec, params, xs, us)
+    out.update(pr_xs=host(xs), pr_us=host(us))
+    out.update({f"pr_d_{n}": host(getattr(derivs, n))
+                for n in P.NodeDerivatives._fields})
+    out.update({f"pr_term_{i}": host(a) for i, a in enumerate(term)})
+    for feasible in (False, True):
+        feas = jnp.asarray(feasible)
+        fs = fddp._gaps(spec, params, xs, derivs, feas)
+        out[f"pr_fs_{int(feasible)}"] = host(fs)
+        for reg in PRICCATI_REGS:
+            r = jnp.asarray(reg, xs.dtype)
+            for kind, bp_fn in (("par", priccati.parallel_backward_pass),
+                                ("seq", fddp._backward_pass)):
+                got = bp_fn(spec, derivs, term, fs, r, r, feas)
+                out.update({f"pr_{kind}_{int(feasible)}_{reg:g}_{n}":
+                            host(getattr(got, n))
+                            for n in fddp.BackwardPassData._fields})
+
+    # the flagship at the offline reference's solution, last homotopy stage
+    ftraj = specs.load_trajectory(f"{ROBOT}/trajectories/{MISSION}.yaml",
+                                  yaml_dir=missions)
+    fspec, fparams = P.from_trajectory(
+        ftraj, dt_ms=DT_REF, use_squash=True,
+        integrator="IntegratedActionModelEuler")
+    st = sbfddp.SbFddpSettings()
+    fparams = sbfddp._set_homotopy(
+        fspec, fparams, st.smooth_init * st.smooth_mult ** (st.n_stages - 1))
+    ref = np.load(os.path.join(ROOT, "missions", "refs",
+                               f"{ROBOT}__{MISSION}__dt{DT_REF}.npz"))
+    fxs, fus = jnp.asarray(ref["xs"]), jnp.asarray(ref["us"])
+    fderivs, fterm = jax.jit(lambda p, a, b: P.calc_diff_all(fspec, p, a, b))(
+        fparams, fxs, fus)
+    out.update({f"flag_d_{n}": host(getattr(fderivs, n))
+                for n in P.NodeDerivatives._fields})
+    out.update({f"flag_term_{i}": host(a) for i, a in enumerate(fterm)})
+    feas = jnp.asarray(False)
+    ffs = fddp._gaps(fspec, fparams, fxs, fderivs, feas)
+    out["flag_fs"] = host(ffs)
+    r = jnp.asarray(1e-9, fxs.dtype)
+    for kind, bp_fn in (("par", priccati.parallel_backward_pass),
+                        ("seq", fddp._backward_pass)):
+        got = jax.jit(lambda d, t, f: bp_fn(fspec, d, t, f, r, r, feas))(
+            fderivs, fterm, ffs)
+        out.update({f"flag_{kind}_{n}": host(getattr(got, n))
+                    for n in fddp.BackwardPassData._fields})
+
+    # tests/test_priccati.py's full solve, both passes
+    xs0, us0 = fddp.default_init(spec, params)
+    for kind, flag in (("par", True), ("seq", False)):
+        st = fddp.SolverSettings(parallel_riccati=flag)
+        r = jax.jit(lambda p: fddp.solve_fddp(
+            spec, st, p, xs0, us0, jnp.asarray(30, jnp.int32),
+            jnp.asarray(1e-9, xs0.dtype)))(params)
+        out.update({f"full_{kind}_{n}": host(getattr(r, n)) for n in fields})
+
+    # tests/distributed_worker.py's problem and global batch, one process
+    wspec, wparams = P.from_trajectory(traj, dt_ms=200, use_squash=True,
+                                       integrator="IntegratedActionModelEuler")
+    rng = np.random.default_rng(0)
+    noise = rng.normal(size=(8, wspec.model.nx)) * 0.03
+    noise[:, 3:7] = 0.0
+    wx0 = np.asarray(wparams.x0)[None] + noise
+    res = jax.jit(jax.vmap(lambda x0: sbfddp.solve(
+        wspec, wparams._replace(x0=x0), maxiter=40)))(jnp.asarray(wx0))
+    out["worker_x0"] = wx0
+    out.update({f"worker_{n}": host(getattr(res, n))
+                for n in ("iters", "feasible", "failed", "cost")})
+    out.update({f"worker_summary_{k}": np.asarray(v)
+                for k, v in convergence_summary(res).items()})
+    return out
+
+
 def main(names):
     import jax
 
@@ -930,7 +1064,22 @@ def main(names):
     }
     os.makedirs(FIXTURES, exist_ok=True)
     names = names or list(ctrls) + ["offline", "closed_loop", "contacts",
-                                    "rk4"]
+                                    "rk4", "parallel"]
+    if "parallel" in names:
+        path = os.path.join(FIXTURES, "torch_port_parallel.npz")
+        out = parallel_fixture(missions)
+        np.savez_compressed(path, **out)
+        print(f"wrote {path}")
+        for n in ("batch", "nan", "full_par", "full_seq"):
+            print(f"  {n}: iters {out[n + '_iters']} feasible "
+                  f"{out[n + '_feasible']} cost {out[n + '_cost']}")
+        for n in ("k", "K", "Vx", "Vxx"):
+            a, b = out[f"flag_par_{n}"], out[f"flag_seq_{n}"]
+            print(f"  flagship {n}: max |parallel - sequential| / max |seq| "
+                  f"{np.abs(a - b).max() / np.abs(b).max():.3e}")
+        print("  priccati ok: " + ", ".join(
+            f"{k[3:-3]} {bool(v)}" for k, v in out.items()
+            if k.startswith("pr_") and k.endswith("_ok")))
     if "rk4" in names:
         path = os.path.join(FIXTURES, "torch_port_rk4.npz")
         out = rk4_fixture(missions, mp, traj, ref, sim)
@@ -985,7 +1134,8 @@ def main(names):
                   f"{out[n + '_feasible']} cost {out[n + '_cost']}")
         print(f"  esc: xreg {out['esc_xreg']} failed {out['esc_failed']}")
     for name in (n for n in names
-                 if n not in ("offline", "closed_loop", "contacts", "rk4")):
+                 if n not in ("offline", "closed_loop", "contacts", "rk4",
+                              "parallel")):
         ctrl = ctrls[name]
         out = tick_fixture(ctrl, sim, ref, mp, *TIMES[name], SEEDS[name])
         if name == "flagship":
