@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MPC ticks (Carrot, Weighted, Rail), its
 offline trajectory generation, its closed loop, its contact missions, its
-RK4 integrator and its scale-out layer on one NVIDIA GPU.
+RK4 integrator, its scale-out layer and its serving layer on one NVIDIA
+GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -196,6 +197,36 @@ its seconds):
        float32 of both passes at the flagship's widths (ndx 18, nu 9) on
        seeded random data, B=1 and B=64, T in {29, 132, 550, 1100}, and
        the T from which the parallel pass is faster.
+11. serving (the MPC tick captured in CUDA graphs: ``mpc.graph``, the
+    fixed-depth solve's sync-free route, ``serving_bench``, ``realtime``
+    with ``utils.rt_executor``):
+    1. the serving bench's tick (the flagship CarrotMpc, B=1, float32,
+       t0=3500 ms, a 2 ms plant; update, the sync-free solve, the plant
+       step, written back into the graph's buffers) warmed up and captured
+       in one graph, with ``torch.cuda.set_sync_debug_mode("error")`` over
+       the warm-up after the first call and over the capture; each kernel's
+       wrapper must have launched while it was captured, and no plain node
+       dynamics ran on the card; a ``torch.profiler`` trace of one replay
+       must hold each of the three kernels (their device names);
+    2. the same tick captured in float64, 3 replays in a row, against the
+       same 3 ticks eager on the solve's default route (iterations and
+       feasibility equal, states, candidates, controls and costs within
+       1e-12 of each one's largest entry) and against the JAX package's
+       chained ``one_tick`` of tools/serving_bench.py
+       (tests/fixtures/torch_port_serving.npz, ``flag_*``: iterations and
+       feasibility equal, states and controls to rtol 1e-6 / atol 1e-8,
+       costs to rtol 1e-8);
+    3. each kernel against its plain version in float64 at the state the
+       replays end in (tiled to B=2, element 1 infeasible), as phase 4;
+    4. ``serving_bench.run`` in float32: the capture's seconds,
+       ``device_tick`` (K=50 replays in a row, one fetch; median of 5),
+       ``roundtrip_tick`` (x0 up, u0 down; median of 25) and
+       ``eager_tick`` (K=50 eager ticks on the default route; median of
+       2), and peak memory;
+    5. the real-time twin (``realtime.serve``): iris hover, the offline
+       solve at dt 40 ms, 100 ticks of the two captured graphs at a 20 ms
+       period inside the native executor; its statistics printed, every
+       tick counted and the plant finite.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -267,6 +298,19 @@ PRICCATI_TOL = {"Vxx": (1e-8, 1e-8), "Vx": (1e-8, 1e-8), "k": (1e-8, 1e-9),
                 "K": (1e-8, 1e-9), "Qu": (1e-8, 1e-9)}   # (rtol, atol)
 PRICCATI_TS = (29, 132, 550, 1100)
 PRICCATI_BS = (1, 64)
+SERVE_FIXTURE = "torch_port_serving.npz"
+SERVE_F64_TICKS = 3     # phase 11 step 2, as the fixture's chain
+SERVE_REL = 1e-12       # phase 11 step 2: graph replays against eager ticks
+SERVE_K = 50
+SERVE_REPS = 5
+SERVE_EAGER_REPS = 2
+RT_MISSION = ("iris", "hover", 40)   # phase 11 step 5: robot, mission, dt
+RT_PERIOD_MS = 20.0
+RT_TICKS = 100
+# device names of the kernels in a profiler trace
+KERNEL_DEVICE_NAMES = {"node_linearization": "node_kernel",
+                       "riccati_backward": "riccati_kernel",
+                       "alpha_rollout": "rollout_kernel"}
 # published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): HBM3
 # bytes/s and float32 FLOP/s outside the tensor cores (the kernels use none)
 PEAK_BYTES_S = 3.35e12
@@ -1909,6 +1953,166 @@ def phase_parallel(device):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the serving layer (the tick in CUDA graphs, the real-time twin)
+# ---------------------------------------------------------------------------
+
+def _trace_launches(fn):
+    """{kernel: launches} in a ``torch.profiler`` trace of ``fn()``, found
+    by the kernels' device names."""
+    import torch
+
+    from eagle_mpc_tpu_torch.profile_tick import device_us
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return {n: sum(e.count for e in events
+                   if dev in e.key and device_us(e) > 0)
+            for n, dev in KERNEL_DEVICE_NAMES.items()}
+
+
+def _serving_rows(step_fn, buf, n):
+    """``n`` ticks of ``step_fn`` (a replay or an eager tick over ``buf``):
+    per field, the ticks' values stacked (B, n, ...)."""
+    import torch
+
+    rows = []
+    for _ in range(n):
+        o = step_fn()
+        rows.append({"x": buf.x.clone(), "xs": buf.xs.clone(),
+                     "us": buf.us.clone(), "u0": o.u0.clone(),
+                     "cost": o.cost.clone(), "iters": o.iters.clone(),
+                     "feasible": o.feasible.clone()})
+    return {k: torch.stack([r[k] for r in rows], dim=1).cpu()
+            for k in rows[0]}
+
+
+def phase_serving(device):
+    """The serving layer (module docstring, phase 11). Returns (launches
+    per kernel in one replayed tick, launches per kernel in the traced
+    replay, {kernel: f64 parity max abs error}, the bench's numbers)."""
+    import torch
+
+    from eagle_mpc_tpu_torch import realtime
+    from eagle_mpc_tpu_torch import serving_bench as sb
+    from eagle_mpc_tpu_torch.mpc import graph as G
+    from eagle_mpc_tpu_torch.ocp import problem as P
+
+    def captured(w):
+        buf = w.start.clone()
+        step = G.CapturedStep(G.serving_tick(w.ctrl, w.sim, w.settings,
+                                             sb.DT_PLANT, buf),
+                              device, state=buf)
+        return step, buf
+
+    # 1. capture in float32, the launches at capture and in a traced replay
+    plain0 = P.PLAIN_ON_CARD
+    w = sb.workload(device=device, dtype=torch.float32)
+    t0 = time.time()
+    step, buf = captured(w)
+    torch.cuda.synchronize()
+    say(f"serving capture f32 B=1 (sync debug mode error over the warm-up "
+        f"and the capture): {time.time() - t0:.3f} s; kernel launches at "
+        f"capture, per replayed tick: {json.dumps(step.launches)}")
+    check(P.PLAIN_ON_CARD == plain0, f"serving: {P.PLAIN_ON_CARD - plain0} "
+          "plain node dynamics ran on the card in the warm-up or capture")
+    for n in KERNEL_DEVICE_NAMES:
+        check(step.launches.get(n, 0) > 0,
+              f"serving: {n}: no launch at capture")
+    traced = _trace_launches(step.replay)
+    say(f"serving launches in the profiler trace of one replay: "
+        f"{json.dumps(traced)}")
+    for n in KERNEL_DEVICE_NAMES:
+        check(traced[n] > 0, f"serving: {n} ({KERNEL_DEVICE_NAMES[n]}) not "
+              "in the trace of a replayed tick")
+    out = step.replay()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out.cost).all() & torch.isfinite(buf.x).all()),
+          "serving f32: non-finite replay")
+    launches = step.launches
+    del step, buf
+
+    # 2. float64: 3 replays against 3 eager ticks and the JAX fixture
+    fx = np.load(os.path.join(ROOT, "tests", "fixtures", SERVE_FIXTURE))
+    w64 = sb.workload(device=device, dtype=torch.float64)
+    step, gbuf = captured(w64)
+    ebuf = w64.start.clone()
+    eager = G.serving_tick(w64.ctrl, w64.sim, w64.settings, sb.DT_PLANT,
+                           ebuf, sync_free=False)
+    got = _serving_rows(step.replay, gbuf, SERVE_F64_TICKS)
+    ref = _serving_rows(eager, ebuf, SERVE_F64_TICKS)
+    check(P.PLAIN_ON_CARD == plain0, "serving: plain node dynamics ran on "
+          "the card")
+    rel = {}
+    for k in ("iters", "feasible"):
+        check(torch.equal(got[k], ref[k]), f"serving f64 {k}: replays "
+              f"{got[k].tolist()}, eager {ref[k].tolist()}")
+        check(np.array_equal(got[k].numpy().astype(fx[f"flag_{k}"].dtype),
+                             fx[f"flag_{k}"]),
+              f"serving f64 {k}: {got[k].tolist()} vs JAX "
+              f"{fx['flag_' + k].tolist()}")
+    for k in ("x", "xs", "us", "u0", "cost"):
+        rel[k] = _err(ref[k], got[k])[1]
+        check(rel[k] <= SERVE_REL, f"serving f64 {k}: replays {rel[k]:.3e} "
+              f"from the eager ticks (> {SERVE_REL:g})")
+        if k == "cost":
+            np.testing.assert_allclose(got[k].numpy(), fx["flag_cost"],
+                                       rtol=1e-8, err_msg="serving f64 cost")
+        else:
+            np.testing.assert_allclose(got[k].numpy(), fx[f"flag_{k}"],
+                                       rtol=1e-6, atol=1e-8,
+                                       err_msg=f"serving f64 {k}")
+    jax_d = {k: float(np.abs(got[k].numpy() - fx[f"flag_{k}"]).max())
+             for k in ("x", "xs", "us", "u0", "cost")}
+    say(f"serving f64 B=1 {SERVE_F64_TICKS} replays: iters "
+        f"{got['iters'].tolist()}, feasible {got['feasible'].tolist()}; max "
+        f"rel from the eager ticks {json.dumps(rel)}; max |diff| from JAX "
+        f"{json.dumps(jax_d)}")
+
+    # 3. each kernel against its plain version at the replayed end state
+    ctrl = w64.ctrl
+    params = ctrl.update_problem(gbuf.t, P.expand_params(
+        ctrl.params0, 1)._replace(x0=gbuf.x))
+    errs = _offline_parity(ctrl.spec, params, (gbuf.xs, gbuf.us), "serving",
+                           box=False)
+    del step, gbuf, ebuf
+
+    # 4. the bench's numbers in float32
+    plain0 = P.PLAIN_ON_CARD
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r = sb.run(w, K=SERVE_K, reps=SERVE_REPS, eager_reps=SERVE_EAGER_REPS)
+    r["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    say(f"serving bench f32 B=1 (flagship, t0=3500 ms, 2 ms plant): capture "
+        f"{r['capture_s']:.3f} s, device_tick {r['device_tick_ms']:.3f} ms "
+        f"(K={SERVE_K}, median of {SERVE_REPS}), roundtrip_tick "
+        f"{r['roundtrip_tick_ms']:.3f} ms (median of {5 * SERVE_REPS}), "
+        f"eager_tick {r['eager_tick_ms']:.3f} ms (default route, K={SERVE_K}"
+        f", median of {SERVE_EAGER_REPS}), budget {w.budget_ms} ms, final "
+        f"cost {r['final_cost']:.4f}, peak memory {r['peak_mib']:.1f} MiB")
+    check(r["captured"], "serving bench: the tick was not captured")
+    check(np.isfinite(r["final_cost"]), "serving bench: non-finite cost")
+
+    # 5. the real-time twin
+    robot, mission, dt_ms = RT_MISSION
+    t0 = time.time()
+    stats, x, _ = realtime.serve(robot, mission, dt_ms, RT_PERIOD_MS,
+                                 RT_TICKS, device, torch.float32)
+    say(f"realtime {robot}/{mission} f32 {RT_TICKS} ticks at "
+        f"{RT_PERIOD_MS:g} ms ({time.time() - t0:.1f} s with the offline "
+        f"solve and the capture): {stats}; real time "
+        f"{stats.total_avg * 1e3 <= RT_PERIOD_MS}")
+    check(stats.n == RT_TICKS, f"realtime: {stats.n} ticks counted")
+    check(bool(np.all(np.isfinite(x))), "realtime: the plant diverged")
+    check(P.PLAIN_ON_CARD == plain0, "serving: plain node dynamics ran on "
+          "the card in the bench or the real-time twin")
+    return launches, traced, errs, r
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the bench workload
 # ---------------------------------------------------------------------------
 
@@ -2009,6 +2213,7 @@ def phase_path(device, name):
 
 
 def main():
+    t_start = time.time()
     import torch
 
     if not torch.cuda.is_available():
@@ -2059,6 +2264,9 @@ def main():
     t_phase = time.time()
     par_launches, par_errs = phase_parallel(device)
     say(f"phase parallel: {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    srv_launches, srv_traced, srv_errs, _ = phase_serving(device)
+    say(f"phase serving: {time.time() - t_phase:.1f} s")
     foreign = sorted(m for m in sys.modules
                      if m in ("jax", "eagle_mpc_tpu", "tools")
                      or m.startswith(("jax.", "eagle_mpc_tpu.", "tools.")))
@@ -2074,7 +2282,8 @@ def main():
                                    closed_loop=cl_launches[name],
                                    contacts=con_launches[name],
                                    rk4=rk4_launches[name],
-                                   parallel=par_launches[name]),
+                                   parallel=par_launches[name],
+                                   serving=srv_launches[name]),
          "max_abs_err": main_stats[name]["max_abs_err"],
          "ms": main_stats[name]["ms"], "plain_ms": main_stats[name]["plain_ms"],
          "bound_ms": main_stats[name]["bound_ms"],
@@ -2085,6 +2294,9 @@ def main():
                      ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "closed_loop_max_abs_err": cl_stats[name]["max_abs_err"],
          "parallel_max_abs_err": par_errs[name],
+         "serving": {"launches_per_replayed_tick": srv_launches[name],
+                     "launches_in_traced_replay": srv_traced[name],
+                     "max_abs_err": srv_errs[name]["max_abs_err"]},
          "contacts": {CONTACT_MISSIONS[key][0]: con_stats[key][name]
                       for key in CONTACT_MISSIONS},
          "rk4": dict({k: rk4_stats[name][k] for k in
@@ -2098,6 +2310,7 @@ def main():
              "slotless_max_abs_err": box_stats[name]["slotless_max_abs_err"]}
             if name in box_stats else {})}
         for name, src, rep in KERNELS]}
+    say(f"chip_smoke.py: {time.time() - t_start:.1f} s in all")
     say(json.dumps(record))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,10 @@
 """Closed-loop MPC demo: an offline SbFDDP solve, then a Carrot, Rail or
 Weighted controller tracking it against the RK4 plant (the PyTorch twin of
-the JAX package's examples/mpc.py, without the plots).
+the JAX package's examples/mpc.py).
 
     python3 -m eagle_mpc_tpu_torch.mpc [robot] [mission]
         [--controller carrot|rail|weighted] [--dt 20] [--dt-sim 2.0]
-        [--horizon-factor 1.2] [--cpu] [--f64] [--smoke]
+        [--horizon-factor 1.2] [--cpu] [--f64] [--smoke] [--plot DIR]
 
 1. the offline solve: ``problem.from_trajectory`` (squashed controls,
    Euler, ``--dt`` ms nodes) and ``sbfddp.solve`` at maxiter 400;
@@ -19,6 +19,9 @@ Runs on the card unless ``--cpu`` is given; on the card the loop runs
 twice and the second run is the steady one. ``--smoke`` runs iris hover on
 the CPU at dt 60 ms, a 20 ms plant and 0.15 of the mission, and exits 1
 unless the states stay finite and the mean tracking error is under 0.5 m.
+``--plot DIR`` writes the closed loop's states, controls and per-tick
+solver telemetry as ``cl_states.png``, ``cl_controls.png`` and
+``cl_telemetry.png`` (``viz.plots``).
 """
 
 from __future__ import annotations
@@ -32,11 +35,10 @@ import numpy as np
 import torch
 
 from ..config import load_mpc_params, load_trajectory
-from ..ocp import problem as P
 from ..sim import AerialSimulator
-from ..solvers import sbfddp
 from ..utils import log, tools
-from . import CarrotMpc, RailMpc, WeightedMpc, run_closed_loop
+from . import (CarrotMpc, RailMpc, WeightedMpc, hold_padded, offline_solution,
+               run_closed_loop)
 
 MISSIONS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "missions")
@@ -56,6 +58,8 @@ def main(argv=None) -> int:
     ap.add_argument("--f64", action="store_true")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny closed loop on the CPU, check tracking")
+    ap.add_argument("--plot", metavar="DIR", default=None,
+                    help="write the closed loop's figures into DIR")
     args = ap.parse_args(argv)
     if args.smoke:
         args.robot, args.mission = "iris", "hover"
@@ -72,14 +76,9 @@ def main(argv=None) -> int:
     mp = load_mpc_params(f"{args.robot}/mpc/mpc.yaml", yaml_dir=MISSIONS)
 
     # 1. the offline reference solve
-    spec, params = P.from_trajectory(traj, dt_ms=args.dt, use_squash=True,
-                                     integrator="IntegratedActionModelEuler",
-                                     dtype=dtype, device=device)
-    res = sbfddp.solve(spec, P.expand_params(params, 1), maxiter=400)
+    xs_off, us_off, res = offline_solution(traj, args.dt, 400, device, dtype)
     log.info(f"offline solve: iters={int(res.iters[0])} "
              f"feasible={bool(res.feasible[0])}")
-    xs_off = res.xs[0].cpu().numpy()
-    us_off = res.us[0].cpu().numpy()
 
     kw = dict(mpc_params=mp, dt_ref=args.dt, device=device, dtype=dtype)
     if args.controller == "carrot":
@@ -90,11 +89,8 @@ def main(argv=None) -> int:
         ctrl = WeightedMpc(trajectory=traj, **kw)
 
     # 2. the hold-padded warm start
-    T = ctrl.spec.T
-    pad = max(0, T + 1 - len(xs_off))
-    hold = lambda a, n: np.vstack([a, np.tile(a[-1], (pad, 1))])[None, :n]
+    xs_w, us_w = hold_padded(ctrl.spec.T, xs_off, us_off, device, dtype)
     to_dev = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    xs_w, us_w = to_dev(hold(xs_off, T + 1)), to_dev(hold(us_off, T))
     sim = AerialSimulator.from_platform(mp.model, mp.platform, args.dt_sim,
                                         device=device, dtype=dtype)
     n_steps = int(traj.duration / args.dt_sim * args.horizon_factor)
@@ -123,6 +119,22 @@ def main(argv=None) -> int:
             log.error(f"smoke: tracking error {errs.mean():.3f} m")
             return 1
         print("SMOKE OK")
+    if args.plot:
+        from ..viz import plots
+
+        os.makedirs(args.plot, exist_ok=True)
+        dt_s = args.dt_sim / 1000.0
+        host = lambda a: a[0].double().numpy()
+        plots.save_fig(plots.plot_states(states, dt_s, mp.model.nq),
+                       os.path.join(args.plot, "cl_states.png"))
+        plots.save_fig(plots.plot_controls(host(out.controls), dt_s,
+                                           mp.platform.n_rotors),
+                       os.path.join(args.plot, "cl_controls.png"))
+        plots.save_fig(plots.plot_solver_telemetry(host(out.costs),
+                                                   out.solve_iters[0].numpy(),
+                                                   dt_s),
+                       os.path.join(args.plot, "cl_telemetry.png"))
+        log.info(f"figures written to {args.plot}/")
     return 0
 
 

@@ -82,7 +82,8 @@ class MpcAbstract:
     def solve(self, params: P.ProblemParams, xs, us, maxiter: Optional[int] = None,
               settings: Optional[sbfddp.SbFddpSettings] = None,
               schedule: Optional[sbfddp.HomotopySchedule] = None,
-              fixed: bool = False, n_alphas: Optional[int] = None):
+              fixed: bool = False, n_alphas: Optional[int] = None,
+              sync_free: bool = False):
         """One warm-started batched MPC solve (``maxiter`` by default the
         controller's ``iters``):
 
@@ -90,10 +91,15 @@ class MpcAbstract:
           its homotopy rows), or with ``fixed=True`` the fixed-depth
           ``sbfddp.solve_fixed`` at depth ``maxiter`` with its default
           polish (``n_alphas`` truncates its line-search ladder; a
-          ``schedule`` is refused);
+          ``schedule`` is refused; ``sync_free`` takes its route that reads
+          nothing on the host, for a CUDA graph, with the same result);
         - a box mission: Box-FDDP/Box-DDP, the while loop on raw controls
           (the spec has no squash)."""
         maxiter = int(self.iters if maxiter is None else maxiter)
+        if sync_free and not (fixed
+                              and self.solver_type == cspecs.SOLVER_SBFDDP):
+            raise ValueError("sync_free is a route of the fixed-depth SbFDDP "
+                             "solve (fixed=True) only")
         if self.solver_type == cspecs.SOLVER_SBFDDP:
             settings = settings or self.solver_settings()
             if fixed:
@@ -102,7 +108,8 @@ class MpcAbstract:
                                      "schedule rows are a while-solver feature")
                 return sbfddp.solve_fixed(self.spec, params, xs, us,
                                           depth=maxiter, settings=settings,
-                                          n_alphas=n_alphas)
+                                          n_alphas=n_alphas,
+                                          sync_free=sync_free)
             return sbfddp.solve(self.spec, params, xs, us, maxiter=maxiter,
                                 settings=settings, schedule=schedule)
         box = (fddp.solve_box_fddp

@@ -6,12 +6,15 @@ tick's time (``update_problem``), re-solves it from the previous solution
 (``controller.solve``) and applies the first squashed control to the RK4
 plant. The loop is a Python loop over ticks; the per-tick records stay on
 the device and are copied to the host once, after the last tick.
+``offline_solution`` and ``hold_padded`` are the demos' offline solve and
+warm start.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..ocp import problem as P
@@ -62,3 +65,25 @@ def run_closed_loop(controller: base.MpcAbstract, simulator: AerialSimulator,
     return ClosedLoopResult(states=host(states), controls=host(controls),
                             solve_iters=host(iters), costs=host(costs),
                             xs=xs, us=us)
+
+
+def offline_solution(traj, dt_ms: int, maxiter: int, device, dtype):
+    """The mission's offline SbFDDP solve at B=1 (squashed controls, Euler
+    nodes of ``dt_ms``): (its states, its controls) as float64 numpy
+    arrays, and the solve's result."""
+    spec, params = P.from_trajectory(traj, dt_ms=dt_ms, use_squash=True,
+                                     integrator="IntegratedActionModelEuler",
+                                     dtype=dtype, device=device)
+    res = sbfddp.solve(spec, P.expand_params(params, 1), maxiter=maxiter)
+    host = lambda a: a[0].detach().to("cpu", torch.float64).numpy()
+    return host(res.xs), host(res.us), res
+
+
+def hold_padded(T: int, xs_off, us_off, device, dtype):
+    """The demos' warm start (1, T+1, nx), (1, T, nu): an offline
+    solution's first T+1 states and T controls, its last ones repeated
+    where it is shorter."""
+    pad = max(0, T + 1 - len(xs_off))
+    hold = lambda a, n: np.vstack([a, np.tile(a[-1], (pad, 1))])[None, :n]
+    to_dev = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return to_dev(hold(xs_off, T + 1)), to_dev(hold(us_off, T))

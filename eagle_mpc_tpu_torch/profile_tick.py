@@ -1,7 +1,7 @@
 """Profile the port's flagship tick or offline solve on one card: where
 the time goes.
 
-    python3 -m eagle_mpc_tpu_torch.profile_tick [carrot|weighted|rail|rk4|offline|closed_loop|contacts]
+    python3 -m eagle_mpc_tpu_torch.profile_tick [carrot|weighted|rail|rk4|offline|closed_loop|contacts|serving]
 
 Runs a path of ``chip_smoke.py`` (hexacopter370_flying_arm_3 displacement,
 float32; the carrot path by default; ``rk4`` the carrot with RK4 nodes,
@@ -15,7 +15,11 @@ eagle_catch at dt 50 ms (T=70, a 3-D contact and a friction cone;
 ``chip_smoke.py``'s phase 8, maxiter 150). ``closed_loop``: the B=1 closed loop of
 ``chip_smoke.py``'s phase 7 (``run_closed_loop``, the while-loop route),
 10 ticks to warm up, 10 unprofiled (the tick time) and 3 from the start
-under the profiler, per tick. The solver's named functions are wrapped in
+under the profiler, per tick. ``serving``: the served tick of
+``serving_bench`` (the flagship, B=1, float32, t0=3500 ms), 10 replays of
+its CUDA graph and then 10 eager ticks on the solve's default route, each
+from the bench's start after one untimed tick: the tick time unprofiled,
+then the same 10 under the profiler. The solver's named functions are wrapped in
 ``torch.profiler.record_function`` for the profiled window only. Prints
 the card's name and power limit, the span table (ms per call under the
 profiler, calls per tick or per solver iteration), the three kernels'
@@ -100,7 +104,7 @@ def _wrap(fn, name):
     return wrapped
 
 
-def _device_us(evt):
+def device_us(evt):
     """Self device time of a device event (a kernel, a copy); 0 for host
     events and for the device's copies of the annotations."""
     from torch.autograd import DeviceType
@@ -210,6 +214,42 @@ def profile_closed_loop(device, ticks=10):
                         lambda: run(TICKS), TICKS, "tick")
 
 
+def profile_serving(device, ticks=10):
+    """The served tick (module docstring): its CUDA graph's replays, then
+    the eager tick on the solve's default route; prints both reports per
+    tick."""
+    import torch
+
+    from . import serving_bench as sb
+    from .mpc import graph as G
+    from .solvers import fddp
+
+    w = sb.workload(device=device)
+    buf = w.start.clone()
+    step = G.CapturedStep(G.serving_tick(w.ctrl, w.sim, w.settings,
+                                         sb.DT_PLANT, buf), device, state=buf)
+    eager = G.serving_tick(w.ctrl, w.sim, w.settings, sb.DT_PLANT, buf,
+                           sync_free=False)
+    spans = _closed_loop_spans(type(w.ctrl)) + [
+        (fddp, "_fixed_iteration", "fixed_iteration")]
+    for label, fn, sp in (("graph replay", step.replay, []),
+                          ("eager tick (default route)", eager, spans)):
+        run = lambda: [fn() for _ in range(ticks)]
+        sb.reset(buf, w.start)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        tick_ms = (time.perf_counter() - t0) / ticks * 1e3
+        print(f"serving {label} f32 B=1: {tick_ms:.3f} ms per tick "
+              f"unprofiled ({ticks} ticks)", flush=True)
+        sb.reset(buf, w.start)
+        fn()
+        torch.cuda.synchronize()
+        _profile_and_report(device, sp, run, ticks, "tick")
+
+
 def _profile_and_report(device, spans, run, n, unit):
     """``run()`` under the profiler with ``spans`` wrapped; prints the span
     table per ``unit`` (``n`` of them in the run), each kernel's device
@@ -248,13 +288,13 @@ def _profile_and_report(device, spans, run, n, unit):
               f"{e.count / n:.2f} |")
     for kernel in ("node_kernel", "node_rk4_kernel", "riccati_kernel",
                    "rollout_kernel"):
-        ks = [e for e in events if kernel in e.key and _device_us(e) > 0]
+        ks = [e for e in events if kernel in e.key and device_us(e) > 0]
         k = sum(e.count for e in ks)
         if k:
-            print(f"{kernel}: {sum(_device_us(e) for e in ks) / k / 1e3:.4f} ms "
+            print(f"{kernel}: {sum(device_us(e) for e in ks) / k / 1e3:.4f} ms "
                   f"device time per launch, {k / n:.2f} launches per {unit}")
-    busy_ms = sum(_device_us(e) for e in events) / 1e3
-    launches = sum(e.count for e in events if _device_us(e) > 0)
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    launches = sum(e.count for e in events if device_us(e) > 0)
     print(f"device busy: {busy_ms:.1f} ms of self device time in {wall_ms:.1f} ms "
           f"of wall, {100 * busy_ms / wall_ms:.1f} %; {launches / n:.0f} "
           f"device operations per {unit}", flush=True)
@@ -279,6 +319,8 @@ def main(args):
             profile_offline(torch.device("cuda", 0), path == "contacts")
         elif path == "closed_loop":
             profile_closed_loop(torch.device("cuda", 0))
+        elif path == "serving":
+            profile_serving(torch.device("cuda", 0))
         else:
             profile(torch.device("cuda", 0), cs.BATCH, path)
     return 0

@@ -18,13 +18,20 @@ becomes per-element masks, each element frozen once it stops.
   pass escalates the regularization and consumes the iteration.
 - Matrix products run in full float32 (TF32 off): reduced precision breaks
   the PD margin of Quu.
+- ``sync_free=True`` (the fixed tick's route, ``solve_fixed`` and the
+  ``while`` polish through ``solve_fddp_or_ddp``) replaces every host test
+  of a loop by its static bound: the loops run their whole budget under
+  the same masks, so the result is the eager route's bit for bit and no
+  tensor is read on the host (what a CUDA graph capture needs).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..ocp import problem as P
@@ -281,8 +288,25 @@ def _box_info(settings, params, us, box: bool):
             if box else None)
 
 
+@functools.lru_cache(maxsize=32)
+def escalation_bound(settings: SolverSettings, reg_start: float, dtype) -> int:
+    """The most retries the escalation can take from a regularization of at
+    least ``reg_start``: multiplications by reg_factor, clamped at reg_max,
+    until reg_max is reached, counted in ``dtype``'s arithmetic (18 with the
+    defaults in float64, 19 in float32). The sync-free route runs this many
+    rounds."""
+    real = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    x, f, hi = real(reg_start), real(settings.reg_factor), real(settings.reg_max)
+    n = 0
+    while x < hi:
+        x = min(real(x * f), hi)
+        n += 1
+    return n
+
+
 def _compute_direction(spec, settings, params, xs, us, feasible, xreg, ureg,
-                       box: bool = False):
+                       box: bool = False, sync_free: bool = False,
+                       n_retries: Optional[int] = None):
     """Linearization and backward pass with the regularization escalation
     of the reference (a do-while): the first pass runs at the incoming
     regularization; then, while any element's pass failed with finite
@@ -290,8 +314,10 @@ def _compute_direction(spec, settings, params, xs, us, feasible, xreg, ureg,
     reg_factor and the pass runs again; an element whose pass is ok keeps
     its result. Non-finite derivatives fail fast (no escalation).
     With ``settings.parallel_riccati`` a non-box pass is
-    ``priccati.parallel_backward_pass``. Returns (cost, fs, bp, xreg, ureg,
-    failed)."""
+    ``priccati.parallel_backward_pass``. With ``sync_free`` the escalation
+    runs ``n_retries`` masked rounds (``escalation_bound``) instead of
+    testing on the host whether any element retries. Returns (cost, fs,
+    bp, xreg, ureg, failed)."""
     derivs, term, cost, fs, derivs_ok = _linearize(spec, params, xs, us,
                                                    feasible)
     info = _box_info(settings, params, us, box)
@@ -307,13 +333,15 @@ def _compute_direction(spec, settings, params, xs, us, feasible, xreg, ureg,
                                   info)
     bp = run_bp(xreg, ureg)
     f, hi = settings.reg_factor, settings.reg_max
-    while True:
+    rounds = 0
+    while not sync_free or rounds < n_retries:
         retry = ~bp.ok & derivs_ok & (xreg < hi)
-        if not bool(retry.any()):
+        if not sync_free and not bool(retry.any()):
             break
         xreg = torch.where(retry, torch.clamp(xreg * f, max=hi), xreg)
         ureg = torch.where(retry, torch.clamp(ureg * f, max=hi), ureg)
         bp = _select(retry, run_bp(xreg, ureg), bp)
+        rounds += 1
     return cost, fs, bp, xreg, ureg, ~bp.ok
 
 
@@ -441,8 +469,22 @@ def _stop_test(settings, ddp, th_stop, any_accept, cost, cost_new, stop_prev,
 
 
 def _alphas(settings, n_alphas, like):
-    return torch.tensor(settings.alphas[:n_alphas], dtype=like.dtype,
-                        device=like.device)
+    return _alpha_ladder(settings.alphas[:n_alphas], like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=32)
+def _alpha_ladder(alphas, dtype, device):
+    """The alpha ladder as a device constant, made once (a tensor made from
+    host data inside a captured tick would be a pageable copy)."""
+    return torch.tensor(alphas, dtype=dtype, device=device)
+
+
+def _budget(maxiter, B: int, device):
+    """Per-element iteration budgets (B,) from an int or a (B,) tensor;
+    an int becomes a fill, not a copy from the host."""
+    if isinstance(maxiter, torch.Tensor):
+        return maxiter.to(device).expand(B)
+    return torch.full((B,), int(maxiter), dtype=torch.int64, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -450,13 +492,15 @@ def _alphas(settings, n_alphas, like):
 # ---------------------------------------------------------------------------
 
 def _while_iteration(spec, settings, params, s: _Carry, ddp: bool, th_stop,
-                     box: bool, phase_id: int) -> _Carry:
+                     box: bool, phase_id: int, sync_free: bool = False,
+                     n_retries: Optional[int] = None) -> _Carry:
     """One iteration of the reference's solve loop: a direction with the
     escalation retried inside, the line search, the step-length
     regularization schedule and the stopping test."""
     alphas = _alphas(settings, settings.n_alphas, s.xs)
     cost, fs, bp, xreg, ureg, failed = _compute_direction(
-        spec, settings, params, s.xs, s.us, s.feasible, s.xreg, s.ureg, box)
+        spec, settings, params, s.xs, s.us, s.feasible, s.xreg, s.ureg, box,
+        sync_free, n_retries)
     gap_norm = fs.abs().amax(dim=(1, 2))
     acc, xs_t, us_t, cost_t = _line_search(
         spec, settings, params, s.xs, s.us, cost, bp, fs, s.feasible, alphas,
@@ -505,12 +549,18 @@ def solve_fddp_or_ddp(spec, settings: SolverSettings, params, xs_init, us_init,
                       ddp: bool, box: bool = False,
                       trace_len: Optional[int] = None,
                       phase_id: int = 0,
-                      final_cost_fallback: bool = True) -> SolveResult:
+                      final_cost_fallback: bool = True,
+                      sync_free: Optional[int] = None) -> SolveResult:
     """The reference's FDDP (gap-aware) or DDP solve over a batch: params
     batched, xs_init (B, T+1, nx), us_init (B, T, nu); ``maxiter`` an int
     or (B,) budgets. Iterates while any element is active (it < maxiter,
     not done, not failed); an element that stops is frozen. The host tests
     once per iteration whether any element is active.
+
+    ``sync_free``: None (the host tests), or a static bound on the budgets
+    (an int >= max ``maxiter``): then exactly that many masked iterations
+    run, each with the escalation's static bound, and nothing is read on
+    the host; the result is the same bit for bit.
 
     With ``settings.record_trace`` an :class:`IterTrace` of ``trace_len``
     rows (default ``maxiter``, which must then be an int) comes back in
@@ -529,14 +579,23 @@ def solve_fddp_or_ddp(spec, settings: SolverSettings, params, xs_init, us_init,
             trace_len = maxiter
         s = s._replace(trace=_empty_trace(xs_init.shape[0], trace_len,
                                           xs_init.dtype, xs_init.device))
-    budget = torch.as_tensor(maxiter, device=xs_init.device)
-    while True:
+    if isinstance(sync_free, bool):
+        raise TypeError("sync_free takes the static bound on the budgets "
+                        "(an int) or None")
+    budget = _budget(maxiter, xs_init.shape[0], xs_init.device)
+    free = sync_free is not None
+    n_retries = (escalation_bound(settings, min(reg_init, settings.reg_min),
+                                  xs_init.dtype) if free else None)
+    i = 0
+    while not free or i < sync_free:
         active = (s.it < budget) & ~s.done & ~s.failed
-        if not bool(active.any()):
+        if not free and not bool(active.any()):
             break
         s = _select(active, _while_iteration(spec, settings, params, s, ddp,
-                                             th_stop, box, phase_id), s)
-    return _result(s, spec, params, final_cost_fallback)
+                                             th_stop, box, phase_id, free,
+                                             n_retries), s)
+        i += 1
+    return _result(s, spec, params, final_cost_fallback, free)
 
 
 def solve_fddp(spec, settings, params, xs_init, us_init, maxiter, th_stop,
@@ -630,8 +689,12 @@ def _init_carry(xs, us, reg_init, feasible_init) -> _Carry:
     B, dtype, device = xs.shape[0], xs.dtype, xs.device
     full = lambda v: torch.full((B,), v, dtype=dtype, device=device)
     false = torch.zeros(B, dtype=torch.bool, device=device)
-    feas = false if feasible_init is None else (
-        torch.as_tensor(feasible_init, device=device).expand(B).clone())
+    if feasible_init is None:
+        feas = false
+    elif isinstance(feasible_init, torch.Tensor):
+        feas = feasible_init.to(device).expand(B).clone()
+    else:
+        feas = torch.full((B,), bool(feasible_init), device=device)
     return _Carry(xs=xs, us=us, cost=full(float("inf")), feasible=feas,
                   xreg=full(reg_init), ureg=full(reg_init),
                   it=torch.zeros(B, dtype=torch.int32, device=device),
@@ -640,12 +703,14 @@ def _init_carry(xs, us, reg_init, feasible_init) -> _Carry:
 
 
 def _result(s: _Carry, spec=None, params=None,
-            final_cost_fallback: bool = False) -> SolveResult:
+            final_cost_fallback: bool = False,
+            sync_free: bool = False) -> SolveResult:
     """The solve's result; with ``final_cost_fallback`` an element that never
     iterated (its cost still inf) gets ``problem.total_cost`` of its
-    candidate."""
+    candidate (computed whatever the costs under ``sync_free``)."""
     cost = s.cost
-    if final_cost_fallback and not bool(torch.isfinite(cost).all()):
+    if final_cost_fallback and (sync_free
+                                or not bool(torch.isfinite(cost).all())):
         cost = torch.where(torch.isfinite(cost), cost,
                            P.total_cost(spec, params, s.xs, s.us))
     return SolveResult(xs=s.xs, us=s.us, cost=cost, iters=s.it,
@@ -658,27 +723,29 @@ def solve_fixed(spec, settings: SolverSettings, params, xs, us, depth: int,
                 th_stop: float, reg_init: float = 1e-9, feasible_init=None, *,
                 ddp: bool = False, box: bool = False, maxiter=None,
                 n_alphas: Optional[int] = None,
-                final_cost_fallback: bool = True) -> SolveResult:
+                final_cost_fallback: bool = True,
+                sync_free: bool = False) -> SolveResult:
     """``depth`` iterations with per-element done/maxiter masking (the
     reference package's ``solve_fixed_batched``). ``maxiter``: None (=
     depth) or a (B,) budget. Iterations after every element has stopped are
-    skipped; they would change nothing. ``final_cost_fallback`` as in
-    :func:`solve_fddp_or_ddp`. ``settings.parallel_riccati`` raises
+    skipped; they would change nothing. With ``sync_free`` all ``depth``
+    run, masked, and nothing is read on the host. ``final_cost_fallback``
+    as in :func:`solve_fddp_or_ddp`. ``settings.parallel_riccati`` raises
     ``ValueError``."""
     _check_fixed_settings(settings)
     P.check_scope(spec)
     full_precision_matmul()
     n_alphas = settings.n_alphas if n_alphas is None else n_alphas
     s = _init_carry(xs, us, reg_init, feasible_init)
-    budget = torch.as_tensor(depth if maxiter is None else maxiter,
-                             device=xs.device).expand(xs.shape[0])
+    budget = _budget(depth if maxiter is None else maxiter, xs.shape[0],
+                     xs.device)
     for i in range(depth):
         active = ~s.done & ~s.failed & (i < budget)
-        if not bool(active.any()):
+        if not sync_free and not bool(active.any()):
             break
         s = _select(active, _fixed_iteration(spec, settings, params, s, ddp,
                                              th_stop, n_alphas, box), s)
-    return _result(s, spec, params, final_cost_fallback)
+    return _result(s, spec, params, final_cost_fallback, sync_free)
 
 
 def solve_while_fixed_body(spec, settings: SolverSettings, params, xs, us,

@@ -10,7 +10,8 @@ elements that are still infeasible.
   while-loop solve (``fddp.solve_fddp_or_ddp``).
 - ``solve_fixed``: one batched fixed-depth solve for the MPC tick and its
   warm start, each stage ``fddp.solve_fixed``; the polish is skipped when
-  every element is feasible.
+  every element is feasible (with ``sync_free`` it runs with a zero budget
+  for the feasible elements instead, which changes nothing).
 """
 
 from __future__ import annotations
@@ -164,7 +165,8 @@ def solve_fixed(spec: P.ProblemSpec, params: P.ProblemParams, xs, us,
                 depth: int = 2, feasible: bool = False,
                 settings: Optional[SbFddpSettings] = None,
                 n_alphas: Optional[int] = None, polish: str = "while",
-                polish_maxiter: Optional[int] = None) -> SbFddpResult:
+                polish_maxiter: Optional[int] = None,
+                sync_free: bool = False) -> SbFddpResult:
     """Fixed-depth SbFDDP over a batch: ``params`` batched, ``xs``
     (B, T+1, nx), ``us`` (B, T, nu).
 
@@ -174,10 +176,19 @@ def solve_fixed(spec: P.ProblemSpec, params: P.ProblemParams, xs, us,
     the fixed iteration; the bench's tick), ``fixed`` (``depth`` masked
     iterations with the full alpha ladder; the warm start) or ``none``.
     ``polish_maxiter`` caps its budget below ``depth``. The fixed-depth
-    path refuses ``settings.solver.parallel_riccati`` (``ValueError``)."""
+    path refuses ``settings.solver.parallel_riccati`` (``ValueError``).
+
+    ``sync_free`` (polish ``while``, ``fixed`` or ``none``) reads nothing
+    on the host: every loop runs its static bound under the same masks
+    (the stages all ``depth`` iterations, the polish always, at most
+    ``depth`` iterations, each escalation at most
+    ``fddp.escalation_bound`` rounds), with a result equal to the eager
+    route's bit for bit. A CUDA graph can capture it."""
     if polish not in ("while", "while_fixed", "fixed", "none"):
         raise ValueError(
             f"polish must be while|while_fixed|fixed|none, got {polish!r}")
+    if sync_free and polish == "while_fixed":
+        raise ValueError("the while_fixed polish has no sync-free route")
     settings = settings or SbFddpSettings()
     fddp._check_fixed_settings(settings.solver)
     B, device = xs.shape[0], xs.device
@@ -196,7 +207,7 @@ def solve_fixed(spec: P.ProblemSpec, params: P.ProblemParams, xs, us,
             spec, settings.solver, _set_homotopy(spec, params, smooths[k]),
             xs, us, depth, th_stops[k], settings.reg_init,
             feas if k == 0 else None, ddp=False, n_alphas=n_alphas,
-            final_cost_fallback=False)
+            final_cost_fallback=False, sync_free=sync_free)
         xs, us, feas = res.xs, res.us, res.feasible
         iters = iters + res.iters
         failed = failed | res.failed
@@ -204,13 +215,14 @@ def solve_fixed(spec: P.ProblemSpec, params: P.ProblemParams, xs, us,
 
     params_f = _set_homotopy(spec, params, smooths[-1])
     budget = depth if polish_maxiter is None else min(polish_maxiter, depth)
-    if polish != "none" and not bool(feas.all()):
+    if polish != "none" and (sync_free or not bool(feas.all())):
         maxiter_p = torch.where(feas, 0, budget)
         th = settings.convergence_stop
         if polish == "while":
             res_p = fddp.solve_fddp_or_ddp(
                 spec, settings.solver, params_f, xs, us, maxiter_p, th,
-                settings.reg_init, False, ddp=True, final_cost_fallback=False)
+                settings.reg_init, False, ddp=True, final_cost_fallback=False,
+                sync_free=budget if sync_free else None)
         elif polish == "while_fixed":
             res_p = fddp.solve_while_fixed_body(
                 spec, settings.solver, params_f, xs, us, maxiter_p, th,
@@ -219,7 +231,7 @@ def solve_fixed(spec: P.ProblemSpec, params: P.ProblemParams, xs, us,
             res_p = fddp.solve_fixed(
                 spec, settings.solver, params_f, xs, us, depth, th,
                 settings.reg_init, ddp=True, maxiter=maxiter_p,
-                final_cost_fallback=False)
+                final_cost_fallback=False, sync_free=sync_free)
         keep = feas
         xs = torch.where(keep[:, None, None], xs, res_p.xs)
         us = torch.where(keep[:, None, None], us, res_p.us)

@@ -2,7 +2,7 @@
 
     python3 -m eagle_mpc_tpu_torch.trajectory [robot] [mission] [--dt 30]
         [--maxiter 400] [--f64] [--verbose] [--cpu]
-        [--batch B --noise 0.05 --seed S] [--out PATH.npz]
+        [--batch B --noise 0.05 --seed S] [--out PATH.npz] [--plot DIR]
 
 Loads ``missions/<robot>/trajectories/<mission>.yaml``, builds the problem
 (``problem.from_trajectory``, squashed controls, Euler; a mission with
@@ -20,7 +20,9 @@ host in float64 after the solve.
   noise (sd ``--noise``, quaternion block untouched; element 0 too;
   ``parallel.batch.perturbed_x0_batch``);
 - ``--out`` writes ``xs``, ``us``, ``us_squash``, ``dt_ms``, ``cost`` and
-  ``iters`` (element 0 at B = 1, the batch otherwise).
+  ``iters`` (element 0 at B = 1, the batch otherwise);
+- ``--plot DIR`` writes element 0's states, squashed controls and 3-D path
+  as ``states.png``, ``controls.png`` and ``traj3d.png`` (``viz.plots``).
 
 Exits 0 when every element ends feasible.
 """
@@ -58,6 +60,8 @@ def main(argv=None) -> int:
     ap.add_argument("--noise", type=float, default=0.05)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="write the solution (npz)")
+    ap.add_argument("--plot", metavar="DIR", default=None,
+                    help="write the solution's figures into DIR")
     args = ap.parse_args(argv)
 
     if not args.cpu and not torch.cuda.is_available():
@@ -113,6 +117,21 @@ def main(argv=None) -> int:
                  us_squash=host(res.us_squash), dt_ms=args.dt,
                  cost=host(res.cost), iters=host(res.iters))
         print(f"wrote {args.out}")
+    if args.plot:
+        from .viz import plots
+
+        os.makedirs(args.plot, exist_ok=True)
+        dt_s = args.dt / 1000.0
+        host = lambda a: a[0].detach().to("cpu", torch.float64).numpy()
+        xs = host(res.xs)
+        plots.save_fig(plots.plot_states(xs, dt_s, spec.model.nq),
+                       os.path.join(args.plot, "states.png"))
+        plots.save_fig(plots.plot_controls(host(res.us_squash), dt_s,
+                                           traj.platform.n_rotors),
+                       os.path.join(args.plot, "controls.png"))
+        plots.save_fig(plots.plot_trajectory_3d(xs),
+                       os.path.join(args.plot, "traj3d.png"))
+        print(f"figures written to {args.plot}/")
     return 0 if bool(res.feasible.all()) else 1
 
 

@@ -174,10 +174,35 @@ hover at dt 100 ms (T = 11):
   ``sbfddp.solve`` (maxiter 40) under vmap, per element and its
   ``convergence_summary`` (``worker_summary_*``).
 
-Compiling the solvers takes a few minutes on a CPU (about 2 minutes per
-controller). Regenerate all eight, or the ones named, with
+The serving layer (``torch_port_serving.npz``, ``serving``): the tick of
+tools/serving_bench.py (``one_tick``: ``update_problem``,
+``ctrl.solve(fixed=True)`` at ``SbFddpSettings(convergence_init=1e-3)``
+with its default ``while`` polish, ``AerialSimulator.step`` of 2 ms from
+``us_squash[0]``), unbatched under ``jax.jit`` and chained 3 times per
+element, each tick starting from the last one's plant state and solution
+at a mission time 2 ms later:
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship weighted rail offline closed_loop contacts rk4 parallel]
+- ``iris_*``: iris hover, ``mpc.yaml`` cut to SERVING_IRIS_KNOTS knots,
+  the synthetic reference at dt 20 ms (no cached solve exists), t0 = 0, two
+  starts: element 0 the bench's (the reference's first state tiled, hover
+  thrust), element 1 a rough one (seeded noise, seed 4: sd 0.05 on x0 off
+  the quaternion, 0.3 on the candidate states, quaternions renormalized,
+  1.0 on the controls), for which the polish runs in the first tick;
+- ``flag_*``: the flagship bench start (missions/refs dt 30, t0 = 3500 ms,
+  the reference's state there tiled, hover thrust), one element;
+- ``disp_*``: ``viz.MulticopterDisplay``'s geometry of the flagship (the
+  gripper frame and the base link displayed, with the CoG) at the offline
+  reference's states ``disp_idx``: the base rotation it draws
+  (``disp_R_drawn``) and the world rotors (``disp_rotor_p``,
+  ``disp_rotor_d``) from it, the base rotation of ``rbd``
+  (``disp_R_rbd``) and the rotors from that (``disp_rbd_rotor_p``,
+  ``disp_rbd_rotor_d``), the CoG and each frame's placement
+  (``disp_frame_p``, ``disp_frame_R``).
+
+Compiling the solvers takes a few minutes on a CPU (about 2 minutes per
+controller). Regenerate all nine, or the ones named, with
+
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [flagship weighted rail offline closed_loop contacts rk4 parallel serving]
 
 (``closed_loop`` reads ``torch_port_flagship.npz``, ``rk4`` reads
 ``torch_port_closed_loop.npz`` and ``torch_port_contacts.npz``.)
@@ -201,6 +226,9 @@ SEEDS = {"flagship": 0, "weighted": 8, "rail": 0}
 TIMES = {"flagship": (3480.0, 3500.0), "weighted": (3180.0, 3200.0),
          "rail": (3180.0, 3200.0)}
 NAMES = ("xs", "us", "us_squash", "cost", "iters", "feasible", "failed")
+SERVING_IRIS_KNOTS = 12
+SERVING_TICKS = 3
+SERVING_NAMES = ("x", "xs", "us", "u0", "cost", "iters", "feasible")
 
 
 def perturbed(spec, x_base, seed):
@@ -1038,6 +1066,117 @@ def parallel_fixture(missions):
     return out
 
 
+def serving_fixture(missions, mp, traj, ref):
+    """The serving layer's JAX values (module docstring); ``mp``, ``traj``
+    and ``ref`` are the flagship's."""
+    import dataclasses
+
+    import jax
+
+    from eagle_mpc_tpu.config import specs
+    from eagle_mpc_tpu.dynamics import rbd
+    from eagle_mpc_tpu.mpc import CarrotMpc
+    from eagle_mpc_tpu.ocp import problem as P
+    from eagle_mpc_tpu.sim import AerialSimulator
+    from eagle_mpc_tpu.solvers import fddp, sbfddp
+    from eagle_mpc_tpu.viz import MulticopterDisplay
+    from tools.make_ref import load_ref
+
+    settings = sbfddp.SbFddpSettings(convergence_init=1e-3,
+                                     solver=fddp.SolverSettings())
+    out = {"iris_knots": SERVING_IRIS_KNOTS}
+
+    def chain(prefix, ctrl, sim, t0, x0, xs0, us0):
+        params0 = P.as_device(ctrl.params0)
+
+        @jax.jit
+        def one_tick(t_ms, x, xs, us):   # tools/serving_bench.py's
+            p = ctrl.update_problem(t_ms, params0._replace(x0=x))
+            r = ctrl.solve(p, xs, us, settings=settings, fixed=True)
+            u = r.us_squash[0]
+            return (sim.step(x, u), r.xs, r.us, u, r.cost, r.iters,
+                    r.feasible)
+
+        rows = []
+        for b in range(x0.shape[0]):
+            x, xs, us = x0[b], xs0[b], us0[b]
+            ticks = []
+            for k in range(SERVING_TICKS):
+                o = [np.asarray(a) for a in one_tick(t0 + 2.0 * k, x, xs, us)]
+                ticks.append(o)
+                x, xs, us = o[:3]
+            rows.append([np.stack(a) for a in zip(*ticks)])
+        out.update({f"{prefix}_{n}": np.stack(a)
+                    for n, a in zip(SERVING_NAMES, zip(*rows))})
+        out.update({f"{prefix}_t0": t0, f"{prefix}_x0": x0,
+                    f"{prefix}_xs0": xs0, f"{prefix}_us0": us0})
+
+    def start(ctrl, mpp, x):
+        T, nu = ctrl.spec.T, ctrl.spec.nu
+        hover = float(mpp.model.inertia[0][0, 0]) * 9.81 / mpp.platform.n_rotors
+        us = np.zeros((x.shape[0], T, nu))
+        us[..., :mpp.platform.n_rotors] = hover
+        return np.tile(x[:, None], (1, T + 1, 1)), us
+
+    # iris hover, the horizon cut, two starts
+    itraj = specs.load_trajectory("iris/trajectories/hover.yaml",
+                                  yaml_dir=missions)
+    imp = dataclasses.replace(
+        specs.load_mpc_params("iris/mpc/mpc.yaml", yaml_dir=missions),
+        knots=SERVING_IRIS_KNOTS)
+    iref, kind = load_ref("iris", "hover", 20, traj=itraj)
+    assert kind == "synthetic"
+    ictrl = CarrotMpc(mpc_params=imp, trajectory=itraj, state_ref=iref,
+                      dt_ref=20)
+    isim = AerialSimulator.from_platform(imp.model, imp.platform, dt_ms=2)
+    rng = np.random.default_rng(4)
+    x0 = np.tile(iref[0], (2, 1))
+    noise = rng.normal(size=x0.shape[1]) * 0.05
+    noise[3:7] = 0.0
+    x0[1] += noise
+    xs0, us0 = start(ictrl, imp, x0)
+    xs0[1] += rng.normal(size=xs0[1].shape) * 0.3
+    xs0[1, :, 3:7] /= np.linalg.norm(xs0[1, :, 3:7], axis=-1, keepdims=True)
+    us0[1] += rng.normal(size=us0[1].shape) * 1.0
+    chain("iris", ictrl, isim, 0.0, x0, xs0, us0)
+
+    # the flagship bench start
+    ctrl = CarrotMpc(mpc_params=mp, trajectory=traj, state_ref=ref,
+                     dt_ref=DT_REF)
+    sim = AerialSimulator.from_platform(mp.model, mp.platform, dt_ms=2)
+    t0 = 3500.0
+    x0 = ref[int(t0 // DT_REF)][None].copy()
+    chain("flag", ctrl, sim, t0, x0, *start(ctrl, mp, x0))
+
+    # the display's geometry at the offline reference's states
+    frames = ("flying_arm_3__gripper", mp.platform.base_link_name)
+    disp = MulticopterDisplay(mp.model, mp.platform, frame_names=frames,
+                              cog=True)
+    idx = np.array([0, 40, 80, 120, ref.shape[0] - 1])
+    geo = {k: [] for k in ("R_drawn", "rotor_p", "rotor_d", "R_rbd",
+                           "rbd_rotor_p", "rbd_rotor_d", "cog", "frame_p",
+                           "frame_R")}
+    for i in idx:
+        x = ref[i]
+        _, R = disp._base_pose(x)
+        rp, rd = disp._world_rotors(x)
+        q = jax.numpy.asarray(x[:mp.model.nq])
+        R_rbd = np.asarray(rbd.body_world_placements(mp.model, q)[1][0])
+        fp, fR = zip(*(rbd.frame_placement(mp.model, q, mp.model.frame_id(f))
+                       for f in frames))
+        for k, v in (("R_drawn", R), ("rotor_p", rp), ("rotor_d", rd),
+                     ("R_rbd", R_rbd),
+                     ("rbd_rotor_p", x[:3] + disp.rotor_pos @ R_rbd.T),
+                     ("rbd_rotor_d", disp.rotor_dir @ R_rbd.T),
+                     ("cog", disp._cog_world(x)),
+                     ("frame_p", np.stack([np.asarray(a) for a in fp])),
+                     ("frame_R", np.stack([np.asarray(a) for a in fR]))):
+            geo[k].append(np.asarray(v))
+    out.update({f"disp_{k}": np.stack(v) for k, v in geo.items()})
+    out.update(disp_idx=idx, disp_frames=np.array(frames))
+    return out
+
+
 def main(names):
     import jax
 
@@ -1064,7 +1203,18 @@ def main(names):
     }
     os.makedirs(FIXTURES, exist_ok=True)
     names = names or list(ctrls) + ["offline", "closed_loop", "contacts",
-                                    "rk4", "parallel"]
+                                    "rk4", "parallel", "serving"]
+    if "serving" in names:
+        path = os.path.join(FIXTURES, "torch_port_serving.npz")
+        out = serving_fixture(missions, mp, traj, ref)
+        np.savez_compressed(path, **out)
+        print(f"wrote {path}")
+        for n in ("iris", "flag"):
+            print(f"  {n}: iters {out[n + '_iters'].tolist()} feasible "
+                  f"{out[n + '_feasible'].tolist()} cost "
+                  f"{out[n + '_cost'].tolist()}")
+        print(f"  display: max |R drawn - R rbd| "
+              f"{np.abs(out['disp_R_drawn'] - out['disp_R_rbd']).max():.3e}")
     if "parallel" in names:
         path = os.path.join(FIXTURES, "torch_port_parallel.npz")
         out = parallel_fixture(missions)
@@ -1135,7 +1285,7 @@ def main(names):
         print(f"  esc: xreg {out['esc_xreg']} failed {out['esc_failed']}")
     for name in (n for n in names
                  if n not in ("offline", "closed_loop", "contacts", "rk4",
-                              "parallel")):
+                              "parallel", "serving")):
         ctrl = ctrls[name]
         out = tick_fixture(ctrl, sim, ref, mp, *TIMES[name], SEEDS[name])
         if name == "flagship":
