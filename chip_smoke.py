@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MPC ticks (Carrot, Weighted, Rail), its
 offline trajectory generation, its closed loop, its contact missions, its
-RK4 integrator, its scale-out layer and its serving layer on one NVIDIA
-GPU.
+RK4 integrator (with contacts too), its scale-out layer and its serving
+layer on one NVIDIA GPU, and hold the kernels to their plain versions on
+every robot of missions/.
 
 Run from the root of a checkout, with no arguments:
 
@@ -153,6 +154,32 @@ its seconds):
       step 1, as phase 4 (K1 also at |q| = 1 and 1 +- 1e-7), and K2 also
       with the clip; the kernels' and plain versions' float32 times there,
       with each kernel's bound;
+   5. RK4 nodes on the contact missions (K1's and K2's RK4 contact
+      branch): K1 in float64 at the JAX fixture's RK4 contact nodes
+      (monkey_bar's ``mb_cd_*`` at the contact fixture's solution,
+      eagle_catch's ``ecr4_*`` at its rough candidate, where the cone's
+      barrier is active) against JAX's node derivatives and, over the
+      whole horizon, against its plain version (PARITY_RTOL); three FDDP
+      iterations of monkey_bar at dt 100 ms in float64 from the fixture's
+      start (``default_init`` with the bases turned RK4_CONTACT_TURN off
+      the rotation log's branch cut) against its ``mbit_*`` (the same
+      steps, costs, states and controls to RK4_CONTACT_COST_RTOL and
+      RK4_CONTACT_XS_RTOL of the largest: a nudge of one unit in the last
+      place on every operand moves them as far, and the same solve so
+      nudged, RK4_CONTACT_NUDGES seeds, is printed beside them);
+      ``sbfddp.solve`` of monkey_bar
+      at dt 40 ms in float32 from the mission's start (RK4_CONTACT_MAXITER
+      iterations a homotopy stage), the launch counts,
+      their RK4 counts and the count of plain node dynamics on the card
+      set to 0 just before it: finite, |J a + a0| <= 1e-6 at the hang
+      nodes (host copies, float64), no plain node dynamics, every K1 and
+      K2 launch an RK4 one; then at each mission's solution (the contact
+      fixture's, at its last homotopy stage) the parity of phase 8 step 3
+      in float64 at CONTACT_PARITY_B starts (noise RK4_CONTACT_NOISE), with
+      eagle_catch also at mu CONTACT_TIGHT_MU, where the cone's barrier
+      must be active at some of K1's nodes and K2's compared lanes (its
+      rows outside their bounds at a stage point), and the kernels' and
+      plain versions' float32 times at B=1 with each kernel's bound;
 10. parallel (the scale-out layer: ``parallel.make_batch_solver``, ranks
     of ``parallel.worker`` joined by ``torch.distributed``, and
     ``priccati.parallel_backward_pass``; the launch counts set to 0 just
@@ -217,7 +244,8 @@ its seconds):
        feasibility equal, states and controls to rtol 1e-6 / atol 1e-8,
        costs to rtol 1e-8);
     3. each kernel against its plain version in float64 at the state the
-       replays end in (tiled to B=2, element 1 infeasible), as phase 4;
+       replays end in (tiled to B=2, element 1 infeasible), as phase 4,
+       and each kernel's bound at B=1 in float32 there;
     4. ``serving_bench.run`` in float32: the capture's seconds,
        ``device_tick`` (K=50 replays in a row, one fetch; median of 5),
        ``roundtrip_tick`` (x0 up, u0 down; median of 25) and
@@ -227,6 +255,19 @@ its seconds):
        solve at dt 40 ms, 100 ticks of the two captured graphs at a 20 ms
        period inside the native executor; its statistics printed, every
        tick counted and the plant finite.
+12. robots: on the hover mission (dt 60 ms, T=25) of every robot of
+    missions/ that no other phase runs (hexacopter370,
+    hexacopter680_flying_arm_2, hextilt, hextilt_flying_arm_5 with nj=5 and
+    nu=11, iris_px4), with Euler and with RK4 nodes, each kernel against
+    its plain version in float64 at ROBOT_B seeded starts around the
+    mission's (element 0 feasible), gated as phase 6 step 5; K2 on the
+    lanes within CONTACT_RUNAWAY, at least half of them (past it round-off
+    grows with the states), and on the lanes past it within RUNAWAY_FACTOR
+    times the distance between its plain version on the card and on the
+    CPU; K3 also against its recursion in numpy's extended precision,
+    and where the plain version lies farther than PARITY_RTOL from that
+    (hextilt_flying_arm_5's ill-conditioned Quu) the kernel within
+    RICCATI_EXT_FACTOR times the plain version's distance from it.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -261,6 +302,20 @@ FIXTURES = {"carrot": "torch_port_flagship.npz",
             "rk4": "torch_port_rk4.npz"}
 RK4 = "IntegratedActionModelRK4"
 RK4_PLAIN_REPS = 3     # phase 9: the plain versions take seconds a call
+RK4_CONTACT_PLAIN_REPS = 1   # phase 9 step 5: K2's plain version, ~10 s a call
+RK4_CONTACT_HANG = (1, 15, 29)   # monkey_bar's hang nodes at dt 40 ms
+# phase 9 step 5: the f64 iterations against JAX's (costs, states and
+# controls), a few times as far as a nudge of about one unit in the last
+# place on every operand moves them (RK4_CONTACT_NUDGES seeds, printed)
+RK4_CONTACT_COST_RTOL = 1e-7
+RK4_CONTACT_XS_RTOL = 5e-5
+RK4_CONTACT_NUDGES = 3
+# phase 9 step 5's f32 monkey_bar solve, per homotopy stage: at phase 8's
+# 150 both stages ran out of budget (300 iterations, 51 s), as phase 8's
+# f32 Euler solve does; its gates do not depend on the budget
+RK4_CONTACT_MAXITER = 50
+RK4_CONTACT_TURN = 1e-3      # rad: the iterations' start, as the fixture's
+RK4_CONTACT_NOISE = (2e-4, 2e-3)   # phase 9 step 5 parity: phase 8's / 10
 BATCH = 512
 WARM_DEPTH = 30
 PARITY_RTOL = 1e-9     # float64 gate, relative to each output's max |entry|
@@ -307,6 +362,22 @@ SERVE_EAGER_REPS = 2
 RT_MISSION = ("iris", "hover", 40)   # phase 11 step 5: robot, mission, dt
 RT_PERIOD_MS = 20.0
 RT_TICKS = 100
+# phase 12: the robots of missions/ that no other phase runs, on hover
+ROBOTS = ("hexacopter370", "hexacopter680_flying_arm_2", "hextilt",
+          "hextilt_flying_arm_5", "iris_px4")
+ROBOT_DT = 60          # ms: the 1500 ms mission in T = 25 nodes
+ROBOT_B = 4
+ROBOT_NOISE = (0.005, 0.01)  # sd on the states; on the controls, of the range
+# phase 12's K3 on an ill-conditioned Quu: the kernel's distance from the
+# recursion in extended precision, at most this many times the plain
+# version's; the wrong K3s there (``_riccati_extended``'s faults) must
+# read above that gate
+RICCATI_EXT_FACTOR = 4
+RICCATI_FAULTS = ("floor", "xreg", "gap")
+# phase 12's K2 on the lanes that run away: the kernel's distance from the
+# plain version on the card, at most this many times the distance between
+# the plain versions on the card and on the CPU
+RUNAWAY_FACTOR = 4
 # device names of the kernels in a profiler trace
 KERNEL_DEVICE_NAMES = {"node_linearization": "node_kernel",
                        "riccati_backward": "riccati_kernel",
@@ -502,10 +573,13 @@ def _healthy_lanes(outs, bound=1e8):
             & (torch.cumsum(cs, dim=-1).abs().amax(dim=-1) < bound))
 
 
-def _time_ms(fn, reps=TIMING_REPS):
+def _time_ms(fn, reps=TIMING_REPS, warm_up=True):
+    """Median ms of ``reps`` calls of ``fn`` (CUDA events), after one
+    untimed call unless ``warm_up`` is false."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -533,9 +607,10 @@ def kernel_calls(ctrl, params, xs, us, feasible, reg, box=False):
     per direction: dJm' lam, Jm M^-1 r, M^-1 Jm' dlam and the solve against
     G's factor; K2 per step: M^-1 Jm', G, its factor and its solve). On an
     RK4 spec K1 does, per stage, the nz solves and the Gauss-Newton
-    products of every slot's full rows (n_res x nz), and K2 the
-    factorization and solves of each of its four stages. ``box`` runs K2
-    with the controls clipped to their bounds."""
+    products of every slot's full rows (n_res x nz) and, on a contact
+    spec, the KKT products per direction, and K2 the factorization and
+    solves of each of its four stages. ``box`` runs K2 with the controls
+    clipped to their bounds."""
     import torch
 
     from eagle_mpc_tpu_torch.ocp import costs as C
@@ -571,10 +646,11 @@ def kernel_calls(ctrl, params, xs, us, feasible, reg, box=False):
     n_frame = sum(s.nr for s in spec.slots if s.kind in C.REF_DIMS)
     n_res = sum(s.nr for s in spec.slots)
     rk4 = spec.integrator == P.RK4
-    k1_ops = (4 * (2 * 2 * nv * nv * nz + 2 * n_res * nz * (nz + 1)) if rk4
-              else (2 * 2 * nv * nv * nz + 2 * 6 * 6 * 6 * n_state
-                    + 2 * n_frame * ndx * (ndx + 1) + 2 * 6 * 6 * nz
-                    + nz * (2 * 3 * nc * nv + 2 * 2 * nc * nc)))
+    kkt_ops = nz * (2 * 3 * nc * nv + 2 * 2 * nc * nc)
+    k1_ops = (4 * (2 * 2 * nv * nv * nz + 2 * n_res * nz * (nz + 1) + kkt_ops)
+              if rk4 else (2 * 2 * nv * nv * nz + 2 * 6 * 6 * 6 * n_state
+                           + 2 * n_frame * ndx * (ndx + 1) + 2 * 6 * 6 * nz
+                           + kkt_ops))
     step_ops = (nv ** 3 // 3 * 2 + 2 * 2 * nv * nv + 2 * 2 * nv * nv * nc
                 + 2 * nc * nc * nv + nc ** 3 // 3 * 2 + 2 * 2 * nc * nc)
     return {
@@ -975,34 +1051,136 @@ def without_slots(spec, params):
 
 
 def _kernel_parity(spec, params, xs, us, feasible, label, box=False,
-                   kernels=None):
+                   kernels=None, witnesses=False):
     """Each kernel (or those named) against its plain version in f64 at
     (xs, us), K2's diverged lanes filtered as phase 4 does: {kernel: max
-    abs error}."""
+    abs error}. With ``witnesses`` (phase 12) K2 is compared on the lanes
+    within CONTACT_RUNAWAY (kernel and plain version must agree on which
+    lanes pass it and the solver's 1e8; at least half the lanes), and on
+    the lanes between the two bounds through :func:`_runaway_witness`
+    with RUNAWAY_FACTOR; and K3 is also held to its recursion in extended
+    precision
+    (:func:`_riccati_extended`): where the plain version lies within
+    PARITY_RTOL of it the kernel is gated at PARITY_RTOL from the plain
+    version, elsewhere (an ill-conditioned Quu) at RICCATI_EXT_FACTOR
+    times the plain version's own distance from it."""
     import torch
 
     calls = kernel_calls(SimpleNamespace(spec=spec), params, xs, us, feasible,
                          reg=1e-2, box=box)
+    bound = CONTACT_RUNAWAY if witnesses else 1e8
     out = {}
     for name in kernels or calls:
         kern, plain = calls[name][:2]
         got, want = kern(), plain()
         note = ""
         if name == "alpha_rollout":
-            lanes = _healthy_lanes(want)
-            check(torch.equal(lanes, _healthy_lanes(got)),
-                  f"{label} alpha_rollout: kernel and plain version disagree "
-                  "on which lanes diverge")
-            note = f", {int(lanes.sum())} of {lanes.numel()} lanes healthy"
+            for b in {1e8, bound}:
+                check(torch.equal(_healthy_lanes(want, b),
+                                  _healthy_lanes(got, b)),
+                      f"{label} alpha_rollout: kernel and plain version "
+                      f"disagree on which lanes pass {b:g}")
+            lanes = _healthy_lanes(want, bound)
+            note = (f", {int(lanes.sum())} of {lanes.numel()} lanes within "
+                    f"{bound:g} ({lanes.sum(1).tolist()} per element)")
+            if witnesses:
+                check(2 * int(lanes.sum()) >= lanes.numel(),
+                      f"{label} alpha_rollout: {int(lanes.sum())} lanes "
+                      f"within {bound:g}, fewer than half")
+                _runaway_witness(spec, params, calls[name][2], got, want,
+                                 _healthy_lanes(want) & ~lanes, label,
+                                 factor=RUNAWAY_FACTOR)
             got, want = [g[lanes] for g in got], [w[lanes] for w in want]
         errs = [_err(w, g) for w, g in zip(want, got)]
         abs_err, rel_err = max(e[0] for e in errs), max(e[1] for e in errs)
+        gate, dist = PARITY_RTOL, rel_err
+        if witnesses and name == "riccati_backward":
+            ref = _riccati_extended(calls[name][2])
+            to_ref = lambda outs: max(_err(r, o.cpu())[1]
+                                      for r, o in zip(ref, outs))
+            plain_ext, kern_ext = to_ref(want), to_ref(got)
+            note = (f"; against its recursion in extended precision: plain "
+                    f"{plain_ext:.3e}, kernel {kern_ext:.3e}")
+            if plain_ext > PARITY_RTOL:
+                gate, dist = RICCATI_EXT_FACTOR * plain_ext, kern_ext
+                wrong = {f: to_ref(_riccati_extended(calls[name][2], f))
+                         for f in RICCATI_FAULTS}
+                note += (", a wrong K3 " + ", ".join(
+                    f"{f} {e:.3e}" for f, e in wrong.items())
+                    + " (the kernel's distance gated)")
+                check(min(wrong.values()) > gate, f"{label} {name}: the "
+                      "gate does not tell a wrong K3 at this state")
         say(f"{label} parity f64 {name} (B={xs.shape[0]}, T={spec.T}): max abs "
-            f"{abs_err:.3e}, max rel {rel_err:.3e}{note} (gate {PARITY_RTOL:g})")
-        check(rel_err <= PARITY_RTOL, f"{label} {name}: kernel differs from "
-              f"its plain version ({rel_err:.3e} > {PARITY_RTOL:g})")
+            f"{abs_err:.3e}, max rel {rel_err:.3e}{note} (gate {gate:.3g})")
+        check(dist <= gate, f"{label} {name}: kernel differs from its "
+              f"plain version ({dist:.3e} > {gate:.3g})")
         out[name] = abs_err
     return out
+
+
+def _riccati_extended(bargs, fault=None):
+    """K3's recursion (``riccati_cuda.backward_plain``: the Q terms, the PD
+    floor, the Cholesky gains, the value update) on the host in numpy's
+    extended precision from the same f64 inputs: (k, K, Qu, Quuk, Vx, Vxx)
+    as float64 tensors. ``fault`` makes it a wrong K3 (RICCATI_FAULTS):
+    "floor" without the PD floor, "xreg" without xreg on Vxx, "gap" with
+    the next node's gap in Vx."""
+    import torch
+
+    ld = np.longdouble
+    check(np.finfo(ld).eps < 1e-18, "numpy's longdouble on this host is no "
+          "wider than float64")
+    a = [t.detach().cpu().numpy() for t in bargs]
+    Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, Vx, Vxx, xreg, ureg = (
+        t.astype(ld) for t in a[:12])
+    feasible = a[12].astype(bool)
+    T, ndx, nu = Lx.shape[1], Lx.shape[2], Lu.shape[2]
+    rel_eps = (fault != "floor") * 100.0 * np.finfo(np.float64).eps
+    mT = lambda m: np.swapaxes(m, -1, -2)
+    mv = lambda m, v: np.einsum("bij,bj->bi", m, v)
+    outs = []
+    for t in reversed(range(T)):
+        fx, fu = Fx[:, t], Fu[:, t]
+        Qx, Qu = Lx[:, t] + mv(mT(fx), Vx), Lu[:, t] + mv(mT(fu), Vx)
+        Qxx = Lxx[:, t] + mT(fx) @ Vxx @ fx
+        Qxu = Lxu[:, t] + mT(fx) @ Vxx @ fu
+        Quu = Luu[:, t] + mT(fu) @ Vxx @ fu
+        floor = rel_eps * np.abs(np.diagonal(Quu, axis1=-2, axis2=-1)).max(-1)
+        Quu = Quu + (ureg + floor)[:, None, None] * np.eye(nu, dtype=ld)
+        gains = _cholesky_solve(Quu, np.concatenate([Qu[..., None], mT(Qxu)],
+                                                    axis=-1))
+        k, K = gains[..., 0], gains[..., 1:]
+        Quuk = mv(Quu, k)
+        Vx = Qx + mv(mT(K), Quuk) - 2.0 * mv(mT(K), Qu)
+        Vxx = Qxx - Qxu @ K
+        Vxx = 0.5 * (Vxx + mT(Vxx)) + (fault != "xreg") * xreg[
+            :, None, None] * np.eye(ndx, dtype=ld)
+        gap = fs[:, min(t + 1, T - 1) if fault == "gap" else t]
+        Vx = Vx + np.where(feasible[:, None], 0.0, mv(Vxx, gap))
+        outs.append((k, K, Qu, Quuk, Vx, Vxx))
+    return tuple(torch.from_numpy(np.stack(o[::-1], axis=1).astype(np.float64))
+                 for o in zip(*outs))
+
+
+def _cholesky_solve(A, rhs):
+    """A^-1 rhs for batched symmetric positive definite A (B, n, n) and rhs
+    (B, n, m) by a Cholesky factor, in the arrays' own precision (numpy's
+    linear algebra has no longdouble)."""
+    n = A.shape[-1]
+    L = np.zeros_like(A)
+    for j in range(n):
+        L[:, j, j] = np.sqrt(A[:, j, j] - (L[:, j, :j] ** 2).sum(-1))
+        for i in range(j + 1, n):
+            L[:, i, j] = (A[:, i, j] - (L[:, i, :j] * L[:, j, :j]).sum(-1)
+                          ) / L[:, j, j]
+    y, x = np.zeros_like(rhs), np.zeros_like(rhs)
+    for i in range(n):
+        y[:, i] = (rhs[:, i] - np.einsum("bj,bjm->bm", L[:, i, :i], y[:, :i])
+                   ) / L[:, i, i, None]
+    for i in reversed(range(n)):
+        x[:, i] = (y[:, i] - np.einsum("bj,bjm->bm", L[:, i + 1:, i],
+                                       x[:, i + 1:])) / L[:, i, i, None]
+    return x
 
 
 def _offline_parity(spec, params, state, label, box, kernels=None):
@@ -1178,10 +1356,12 @@ def phase_closed_loop(device):
 # phase 8: the contact missions (masked KKT dynamics, friction cone)
 # ---------------------------------------------------------------------------
 
-def contact_problem(device, dtype, mission, dt_ms, six=False, mu=None):
+def contact_problem(device, dtype, mission, dt_ms, six=False, mu=None,
+                    integrator="IntegratedActionModelEuler"):
     """(spec, params batched at B = 1) of a contact mission, as the entry
     point builds them (optionally with its contacts made 6-D, or every
-    friction cone's coefficient set to ``mu``)."""
+    friction cone's coefficient set to ``mu``; the integrator as
+    ``from_trajectory`` names it)."""
     import dataclasses
 
     from eagle_mpc_tpu_torch.config import load_trajectory
@@ -1198,8 +1378,8 @@ def contact_problem(device, dtype, mission, dt_ms, six=False, mu=None):
                 for c in st.costs))
             for st in traj.stages))
     spec, params = P.from_trajectory(
-        traj, dt_ms=dt_ms, use_squash=True,
-        integrator="IntegratedActionModelEuler", dtype=dtype, device=device)
+        traj, dt_ms=dt_ms, use_squash=True, integrator=integrator,
+        dtype=dtype, device=device)
     return spec, P.expand_params(params, 1)
 
 
@@ -1245,13 +1425,14 @@ def _contact_invariants(key, spec, params, res):
         check(fz >= -1e-6, "contacts eagle_catch: negative normal force")
 
 
-def _contact_parity(spec, params, state, label, cone=False):
+def _contact_parity(spec, params, state, label, cone=False,
+                    noise=CONTACT_NOISE):
     """K1 and K2 against their plain versions in f64 at a solved state
     (``params`` at the solve's last homotopy stage) tiled to B =
     CONTACT_PARITY_B: element 0 the solution, feasible; element 1 the
     solution, infeasible (the gap branch); the others the solution plus
-    seeded noise (CONTACT_NOISE: sd on the states, quaternions
-    renormalized, and on the controls), infeasible. K3, which the contacts
+    seeded noise (``noise``: sd on the states, quaternions renormalized,
+    and on the controls), infeasible. K3, which the contacts
     do not reach, is printed beside them: at these states cond(Quu) puts
     two correct Cholesky implementations about 1e-9 apart (ROADMAP Queue
     3), and phases 4, 6 and 7 gate it. K2 is compared on the lanes whose
@@ -1259,8 +1440,10 @@ def _contact_parity(spec, params, state, label, cone=False):
     must agree on which lanes pass it and the solver's 1e8. The compared
     lanes must include perturbed elements and run through contact-active
     and inactive nodes, and with ``cone`` through nodes where the friction
-    cone's barrier is active (K1's Lxu at the lanes' states nonzero). The
-    lanes between the two bounds go to :func:`_runaway_witness`."""
+    cone's barrier is active (on an Euler spec K1's Lxu at the lanes'
+    states nonzero, which the cone's rows alone make; an RK4 spec's Lxu is
+    never zero, so there :func:`_cone_barrier_nodes`). The lanes between
+    the two bounds go to :func:`_runaway_witness`."""
     import torch
 
     from eagle_mpc_tpu_torch.ocp import problem as P
@@ -1269,15 +1452,16 @@ def _contact_parity(spec, params, state, label, cone=False):
     B = CONTACT_PARITY_B
     xs, us = (a.expand((B,) + a.shape[1:]).clone() for a in state)
     g = torch.Generator(device=xs.device).manual_seed(0)
-    noise = lambda a, sd: sd * torch.randn(a[2:].shape, generator=g,
-                                           device=a.device, dtype=a.dtype)
-    xs[2:] += noise(xs, CONTACT_NOISE[0])
+    draw = lambda a, sd: sd * torch.randn(a[2:].shape, generator=g,
+                                          device=a.device, dtype=a.dtype)
+    xs[2:] += draw(xs, noise[0])
     xs[2:, :, 3:7] /= xs[2:, :, 3:7].norm(dim=-1, keepdim=True)
-    us[2:] += noise(us, CONTACT_NOISE[1])
+    us[2:] += draw(us, noise[1])
     pb = P.map_params(lambda a: a.expand((B,) + a.shape[1:]).contiguous(),
                       params)
     pb = pb._replace(x0=xs[:, 0].contiguous())
     feasible = torch.arange(B, device=xs.device) == 0
+    rk4 = spec.integrator == P.RK4
     active = pb.node.contact_active[0, :spec.T]
     check(bool((active == 1).any()) and bool((active == 0).any()),
           f"{label}: no contact-active and inactive nodes")
@@ -1301,14 +1485,19 @@ def _contact_parity(spec, params, state, label, cone=False):
             n = xl.shape[0]
             pl = P.map_params(lambda a: a[:1].expand((n,) + a.shape[1:])
                               .contiguous(), pb)
-            lxu = node_cuda.calc_diff_running(
-                spec, pl._replace(x0=xl[:, 0].contiguous()), xl,
-                want[1][lanes]).Lxu.abs().amax(dim=(-2, -1))
+            pl = pl._replace(x0=xl[:, 0].contiguous())
+            if rk4:
+                barrier = _cone_barrier_nodes(spec, pl, xl, want[1][lanes])
+            else:
+                barrier = node_cuda.calc_diff_running(
+                    spec, pl, xl, want[1][lanes]).Lxu.abs().amax(
+                        dim=(-2, -1)) > 0
             say(f"{label} alpha_rollout: {n} of {lanes.numel()} lanes "
                 f"within {CONTACT_RUNAWAY:g} compared ({lanes.sum(1).tolist()}"
                 f" per element); the cone's barrier active at "
-                f"{int((lxu > 0).sum())} of their nodes")
-            check(not cone or bool((lxu > 0).any()), f"{label} alpha_rollout:"
+                f"{int(barrier.sum())} of their nodes, on "
+                f"{int(barrier.any(1).sum())} lanes")
+            check(not cone or bool(barrier.any()), f"{label} alpha_rollout:"
                   " the friction cone's barrier is active on no compared lane")
             got, want = [g[lanes] for g in got], [w[lanes] for w in want]
         errs = [_err(w, g) for w, g in zip(want, got)]
@@ -1321,21 +1510,54 @@ def _contact_parity(spec, params, state, label, cone=False):
               f"differs from its plain version ({rel_err:.3e} > "
               f"{PARITY_RTOL:g})")
         if name == "node_linearization":
-            nodes = int((want.Lxu.abs().amax(dim=(-2, -1)) > 0).sum())
+            nodes = int((_cone_barrier_nodes(spec, pb, xs, us) if rk4 else
+                         want.Lxu.abs().amax(dim=(-2, -1)) > 0).sum())
             say(f"{label} node_linearization: the cone's barrier active at "
-                f"{nodes} of {B * spec.T} nodes (Lxu nonzero)")
+                f"{nodes} of {B * spec.T} nodes ("
+                + ("cone rows outside their bounds at a stage point)" if rk4
+                   else "Lxu nonzero)"))
             check(not cone or nodes > 0, f"{label} node_linearization: the "
                   "friction cone's barrier is active at no node")
         out[name] = {"max_abs_err": abs_err}
     return out
 
 
-def _runaway_witness(spec, params, ins, got, want, away, label):
+def _cone_barrier_nodes(spec, params, xs, us):
+    """(B, T) nodes where a friction cone's barrier is active under the
+    spec's integrator: the cone is weighted there and its rows at one of
+    the node's stage points (each with that stage's forces, from the plain
+    stage points) lie outside their bounds."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import costs as C
+    from eagle_mpc_tpu_torch.ocp import problem as P
+
+    B, T = us.shape[:2]
+    flat = lambda a: a.reshape((B * T,) + a.shape[2:])
+    view = P.map_params(flat, P.running_views(params.node, T))
+    glob = P.map_params(
+        lambda a: flat(a[:, None].expand((B, T) + a.shape[1:])), params.glob)
+    s = flat(us)
+    pts, _, _ = P._stage_points(spec, view, glob, flat(xs[:, :T]), s)
+    res = [P._point_residuals(spec, view, x, s, False, f) for _, x, f in pts]
+    hit = torch.zeros(B * T, dtype=torch.bool, device=us.device)
+    for k, slot in enumerate(spec.slots):
+        if slot.kind == C.FRICTION_CONE:
+            on = view.weight[..., k] * view.active[..., k] != 0
+            for r in res:
+                hit |= on & ((r[k] < glob.lb[k]) | (r[k] > glob.ub[k])).any(-1)
+    return hit.reshape(B, T)
+
+
+def _runaway_witness(spec, params, ins, got, want, away, label,
+                     factor=None):
     """On the lanes that run away (past CONTACT_RUNAWAY, within the
     solver's 1e8), print how far the plain version on the card and on the
     host CPU (float64, the same inputs) lie apart, beside the kernel's
     distance from each: round-off grows along such a lane, so two correct
-    implementations part there."""
+    implementations part there. With ``factor`` the kernel's distance from
+    the plain version on the card is gated at PARITY_RTOL or ``factor``
+    times the two plain versions' distance, whichever is larger."""
     import torch
 
     from eagle_mpc_tpu_torch.ocp import problem as P
@@ -1353,11 +1575,16 @@ def _runaway_witness(spec, params, ins, got, want, away, label):
     pick = lambda outs: [o[sel].cpu()[lanes] for o in outs]
     h, w, g = [o[lanes] for o in host], pick(want), pick(got)
     dist = lambda a, b: max(_err(x, y)[1] for x, y in zip(a, b))
+    gate = None if factor is None else max(PARITY_RTOL, factor * dist(h, w))
     say(f"{label} alpha_rollout: {int(away.sum())} lanes run past "
         f"{CONTACT_RUNAWAY:g} (largest |entry| {float(w[0].abs().max()):.3e}"
         f"); on them, plain on the card against plain on the CPU "
         f"{dist(h, w):.3e} relative, kernel against either "
-        f"{dist(h, g):.3e} / {dist(w, g):.3e} (not gated)")
+        f"{dist(h, g):.3e} / {dist(w, g):.3e} "
+        + ("(not gated)" if gate is None else f"(gate {gate:.3g})"))
+    check(gate is None or dist(w, g) <= gate, f"{label} alpha_rollout: on the"
+          " lanes that run away the kernel lies farther from its plain "
+          "version than the plain versions on the card and CPU allow")
 
 
 def phase_contacts(device):
@@ -1577,10 +1804,220 @@ def _rk4_jax_parity(device):
     return max(e[0] for e in errs.values())
 
 
+def _rk4_contact_jax_parity(device, fx_rk4, fx_con):
+    """Step 5 of phase 9, first part: K1 through the kernel in f64 at the
+    RK4 contact nodes of the JAX fixture (monkey_bar's ``mb_cd_*`` at the
+    contact fixture's solution, eagle_catch's ``ecr4_*`` at its rough
+    candidate, where the cone's barrier is active) against JAX's node
+    derivatives and against its plain version over the whole horizon:
+    {mission: max abs error against JAX}."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ops import node_cuda
+
+    out = {}
+    for key, sol, mission, dt_ms in (("mb", "mb", "monkey_bar", 40),
+                                     ("ecr4", "ecr", "eagle_catch", 50)):
+        spec, params = contact_problem(device, torch.float64, mission, dt_ms,
+                                       integrator=RK4)
+        xs, us = (torch.as_tensor(fx_con[f"{sol}_{n}"], device=device)[None]
+                  for n in ("xs", "us"))
+        got = node_cuda.calc_diff_running(spec, params, xs, us)
+        want = node_cuda.calc_diff_running_plain(spec, params, xs, us)
+        torch.cuda.synchronize()
+        nodes = fx_rk4[f"{key}_nodes"].tolist()
+        jax = {n: _err(torch.as_tensor(fx_rk4[f"{key}_cd_{n}"], device=device),
+                       getattr(got, n)[0, nodes]) for n in got._fields}
+        rel_jax = max(e[1] for e in jax.values())
+        rel_plain = max(_err(w, g)[1] for w, g in zip(want, got))
+        say(f"rk4 contacts {mission} K1 f64 at nodes {nodes} against JAX's "
+            f"node derivatives: max rel {rel_jax:.3e}; the whole horizon "
+            f"(T={spec.T}) against the plain version: max rel "
+            f"{rel_plain:.3e} (gate {PARITY_RTOL:g}); max |Lxu| "
+            f"{float(got.Lxu[0, nodes].abs().max()):.3e}")
+        check(rel_jax <= PARITY_RTOL and rel_plain <= PARITY_RTOL,
+              f"rk4 contacts {mission} K1 differs from JAX's node derivatives "
+              f"or its plain version: {jax}")
+        out[mission] = max(e[0] for e in jax.values())
+    return out
+
+
+def _rk4_contact_iterations(device, fx):
+    """Step 5 of phase 9: three FDDP iterations of monkey_bar with RK4 nodes
+    at dt 100 ms (T = 18) in f64 through the kernels against the JAX
+    package's (``mbit_*``), beside the same solve with every operand nudged
+    by about one unit in the last place."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.solvers import fddp
+
+    spec, params = contact_problem(device, torch.float64, "monkey_bar", 100,
+                                   integrator=RK4)
+    check(spec.T == 18, f"monkey_bar at dt 100: T {spec.T}")
+    xs0, us0 = fddp.default_init(spec, params)
+    # the fixture's start: every candidate state's base turned about its y
+    # axis, off the rotation log's branch cut (tests/test_torch_rk4_contacts.py)
+    turn = torch.zeros(spec.state.ndx, device=device, dtype=torch.float64)
+    turn[4] = RK4_CONTACT_TURN
+    xs0 = spec.state.integrate(xs0, turn)
+    solve = lambda p, x, u: fddp.solve_fddp(
+        spec, fddp.SolverSettings(record_trace=True), p, x, u, 3, 1e-9)
+    r = solve(params, xs0, us0)
+    tr = fddp.IterTrace(*(a[0].cpu().numpy() for a in r.trace))
+    for n in ("iters", "feasible", "failed"):
+        check(getattr(r, n)[0].item() == fx[f"mbit_{n}"].item(),
+              f"rk4 contacts monkey_bar 3 iterations: {n} differs from JAX's")
+    for n in ("accepted", "phase", "steplength"):
+        check(np.array_equal(getattr(tr, n), fx[f"mbit_trace_{n}"]),
+              f"rk4 contacts monkey_bar 3 iterations: trace {n} differs")
+    rel = lambda a, ref: float(np.abs(a - ref).max() / np.abs(ref).max())
+    dcost = rel(tr.cost, fx["mbit_trace_cost"])
+    dxs = max(rel(getattr(r, n)[0].cpu().numpy(), fx[f"mbit_{n}"])
+              for n in ("xs", "us"))
+    # the witness: every operand nudged by about one unit in the last place
+    moved = []
+    for seed in range(RK4_CONTACT_NUDGES):
+        g = torch.Generator(device=device).manual_seed(seed)
+        nudge = lambda a: (a * (1 + 1e-16 * torch.randn(
+            a.shape, generator=g, device=device, dtype=a.dtype))
+            if torch.is_floating_point(a) else a)
+        r2 = solve(P.map_params(nudge, params), nudge(xs0), nudge(us0))
+        tr2 = fddp.IterTrace(*(a[0].cpu().numpy() for a in r2.trace))
+        moved.append((rel(tr2.cost, tr.cost), max(
+            rel(getattr(r2, n)[0].cpu().numpy(), getattr(r, n)[0].cpu().numpy())
+            for n in ("xs", "us"))))
+    say(f"rk4 contacts monkey_bar f64 T={spec.T}: 3 FDDP iterations through "
+        f"the kernels, steps {tr.steplength.tolist()} as JAX's, costs within "
+        f"{dcost:.3e} (gate {RK4_CONTACT_COST_RTOL:g}), states and controls "
+        f"within {dxs:.3e} of the largest (gate {RK4_CONTACT_XS_RTOL:g}); "
+        f"every operand nudged by about one unit in the last place "
+        f"({RK4_CONTACT_NUDGES} seeds) moves the costs "
+        f"{', '.join(f'{c:.3e}' for c, _ in moved)} and the states and "
+        f"controls {', '.join(f'{x:.3e}' for _, x in moved)} (not gated)")
+    check(dcost <= RK4_CONTACT_COST_RTOL and dxs <= RK4_CONTACT_XS_RTOL,
+          "rk4 contacts monkey_bar 3 iterations: costs or states differ")
+
+
+def _rk4_contact_solve(device):
+    """Step 5 of phase 9: ``sbfddp.solve`` of monkey_bar with RK4 nodes at dt
+    40 ms in f32 from the mission's start, the launch counts, their RK4
+    counts and the count of plain node dynamics on the card set to 0 just
+    before it: finite, the contact held at the hang nodes (|J a + a0| from
+    host copies, in f64, within phase 8's bound), no plain node dynamics,
+    every K1 and K2 launch an RK4 one. Returns the launches per kernel."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.ops import node_cuda, riccati_cuda, rollout_cuda
+    from eagle_mpc_tpu_torch.solvers import sbfddp
+
+    mods = {"node_linearization": node_cuda, "riccati_backward": riccati_cuda,
+            "alpha_rollout": rollout_cuda}
+    spec, params = contact_problem(device, torch.float32, "monkey_bar", 40,
+                                   integrator=RK4)
+    check(spec.integrator == P.RK4 and spec.T == 45 and spec.nc_rows == 3,
+          f"monkey_bar RK4: T {spec.T}, {spec.nc_rows} contact rows")
+    torch.cuda.synchronize()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    node_cuda.RK4_LAUNCHES = rollout_cuda.RK4_LAUNCHES = 0
+    P.PLAIN_ON_CARD = 0
+    res, sec = _solve_timed(lambda: sbfddp.solve(
+        spec, params, maxiter=RK4_CONTACT_MAXITER))
+    launches = {n: m.LAUNCHES for n, m in mods.items()}
+    rk4 = {"node_linearization": node_cuda.RK4_LAUNCHES,
+           "alpha_rollout": rollout_cuda.RK4_LAUNCHES}
+    plain = P.PLAIN_ON_CARD
+    it = int(res.iters[0])
+    say(f"rk4 contacts monkey_bar f32 B=1 T={spec.T}: {sec * 1e3:.1f} ms, "
+        f"iters {it}, {sec * 1e3 / max(it, 1):.2f} ms per iteration, cost "
+        f"{float(res.cost[0])!r}, feasible {bool(res.feasible[0])}, failed "
+        f"{bool(res.failed[0])}; launches {json.dumps(launches)}, RK4 ones "
+        f"of K1 and K2 {json.dumps(rk4)}; plain node dynamics on the card "
+        f"{plain}")
+    check(all(bool(torch.isfinite(a).all()) for a in (res.xs, res.us,
+                                                      res.cost)),
+          "rk4 contacts monkey_bar f32: non-finite values")
+    check(plain == 0, f"rk4 contacts: {plain} plain node dynamics on the card")
+    for n in rk4:
+        check(rk4[n] == launches[n] > 0, f"rk4 contacts: {n}: {rk4[n]} RK4 "
+              f"launches of {launches[n]}")
+    check(launches["riccati_backward"] > 0, "rk4 contacts: K3 never launched")
+    host = lambda a: a.detach().cpu().double()
+    solved = sbfddp._set_homotopy(spec, P.map_params(host, params),
+                                  float(res.smooth[0]))
+    hold = P.contact_violation(spec, solved, host(res.xs), host(res.us))[0]
+    worst = max(float(hold[t]) for t in RK4_CONTACT_HANG)
+    say(f"rk4 contacts monkey_bar f32: |J a + a0| at hang nodes "
+        f"{list(RK4_CONTACT_HANG)} (f64, host copies) at most {worst:.3e} "
+        f"(bound 1e-6)")
+    check(worst <= 1e-6, "rk4 contacts monkey_bar: the contact does not hold")
+    return launches
+
+
+def _rk4_contacts(device):
+    """Step 5 of phase 9 (module docstring): RK4 nodes on the contact
+    missions through K1 and K2. Returns (launches of the f32 solve,
+    {mission: {kernel: its numbers}})."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+    from eagle_mpc_tpu_torch.solvers import sbfddp
+
+    fx = np.load(os.path.join(ROOT, "tests", "fixtures", FIXTURES["rk4"]))
+    fxc = np.load(os.path.join(ROOT, "tests", "fixtures", CONTACT_FIXTURE))
+    f64, f32 = torch.float64, torch.float32
+    jax_err = _rk4_contact_jax_parity(device, fx, fxc)
+    _rk4_contact_iterations(device, fx)
+    launches = _rk4_contact_solve(device)
+    stats = {}
+    for key, (mission, dt_ms) in CONTACT_MISSIONS.items():
+        spec, params = contact_problem(device, f64, mission, dt_ms,
+                                       integrator=RK4)
+        smooth = float(fxc[f"{key}_smooth"])
+        params = sbfddp._set_homotopy(spec, params, smooth)
+        state = tuple(torch.as_tensor(fxc[f"{key}_{n}"], device=device)[None]
+                      for n in ("xs", "us"))
+        stats[mission] = _contact_parity(spec, params, state,
+                                         f"rk4 contacts {mission}",
+                                         noise=RK4_CONTACT_NOISE)
+        stats[mission]["node_linearization"]["jax_max_abs_err"] = jax_err[mission]
+        if key == "ec":
+            # on a slippery surface, as phase 8 step 3: the cone's barrier
+            # active at the compared lanes' stage points
+            tight, tp = contact_problem(device, f64, mission, dt_ms,
+                                        mu=CONTACT_TIGHT_MU, integrator=RK4)
+            for name, r in _contact_parity(
+                    tight, sbfddp._set_homotopy(tight, tp, smooth), state,
+                    f"rk4 contacts {mission} mu {CONTACT_TIGHT_MU:g}",
+                    cone=True, noise=RK4_CONTACT_NOISE).items():
+                stats[mission][name]["max_abs_err_cone"] = r["max_abs_err"]
+        # times in f32 at B = 1 at the mission's solution
+        p32 = P.map_params(lambda a: a.to(f32), params)
+        xs, us = (a.to(f32) for a in state)
+        calls = kernel_calls(SimpleNamespace(spec=spec), p32, xs, us,
+                             torch.tensor([True], device=device), reg=1e-2)
+        for name, (kern, plain, ins, flops) in calls.items():
+            r = stats[mission][name]
+            r["bound_ms"], r["bound_by"] = bound_ms(ins, kern(), flops)
+            r["ms"] = _time_ms(kern)
+            # the plain version ran in the parity above: no warm-up call
+            # (seconds here)
+            r["plain_ms"] = _time_ms(plain, reps=RK4_CONTACT_PLAIN_REPS,
+                                     warm_up=False)
+            say(f"rk4 contacts time f32 B=1 {mission} T={spec.T} {name}: "
+                f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms "
+                f"(medians of {TIMING_REPS} and {RK4_CONTACT_PLAIN_REPS}), "
+                f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+    return launches, stats
+
+
 def phase_rk4(device):
     """The RK4 integrator (module docstring, phase 9). Returns (launches in
     steps 1 to 3 per kernel, launches per timed tick of step 1, {kernel:
-    its numbers at step 1's end state})."""
+    its numbers at step 1's end state}, step 5's launches and {mission:
+    {kernel: its numbers}})."""
     import torch
 
     from eagle_mpc_tpu_torch.ocp import problem as P
@@ -1615,7 +2052,65 @@ def phase_rk4(device):
     stats["node_linearization"]["jax_max_abs_err"] = jax_err
     stats["alpha_rollout"]["clip_max_abs_err"] = stats.pop(
         "alpha_rollout (clip)")["max_abs_err"]
-    return launches, per_tick, stats
+    # 5. RK4 nodes on the contact missions
+    con_launches, con_stats = _rk4_contacts(device)
+    return launches, per_tick, stats, con_launches, con_stats
+
+
+# ---------------------------------------------------------------------------
+# phase 12: kernel parity on the other robots of missions/
+# ---------------------------------------------------------------------------
+
+def robot_inputs(spec, params, B, seed):
+    """A solver state of B elements around the hover mission's start: x0
+    tiled plus seeded noise (sd ROBOT_NOISE[0], quaternions renormalized),
+    the controls at the middle of their bounds, the rotor thrusts plus
+    noise (ROBOT_NOISE[1] of their range; a joint torque that far off
+    throws a light link past any RK4 step); x0 each element's first
+    state. Returns (params, xs, us)."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ocp import problem as P
+
+    rng = np.random.default_rng(seed)
+    T, nx, nu = spec.T, spec.model.nx, spec.nu
+    x0 = params.x0[0].cpu().numpy()
+    xs = np.tile(x0, (B, T + 1, 1)) + rng.normal(size=(B, T + 1, nx)) * ROBOT_NOISE[0]
+    xs[..., 3:7] /= np.linalg.norm(xs[..., 3:7], axis=-1, keepdims=True)
+    lb, ub = (a[0].cpu().numpy() for a in (params.glob.s_lb, params.glob.s_ub))
+    rotor = np.arange(nu) < len(spec.tau_f[0])
+    us = (0.5 * (lb + ub) + rng.normal(size=(B, T, nu)) * ROBOT_NOISE[1]
+          * (ub - lb) * rotor)
+    t = lambda a: torch.as_tensor(a, device=params.x0.device,
+                                  dtype=params.x0.dtype)
+    xs, us = t(xs), t(us)
+    pb = P.map_params(lambda a: a.expand((B,) + a.shape[1:]).contiguous(),
+                      params)
+    return pb._replace(x0=xs[:, 0].contiguous()), xs, us
+
+
+def phase_robots(device):
+    """Each kernel against its plain version in f64 on the hover mission of
+    every robot in missions/ that no other phase runs (module docstring,
+    phase 12), Euler and RK4 nodes: {robot: {kernel: max abs error}}."""
+    import torch
+
+    out = {}
+    for robot in ROBOTS:
+        errs = {}
+        for integrator in ("IntegratedActionModelEuler", RK4):
+            spec, params = offline_problem(device, torch.float64, robot,
+                                           "hover", ROBOT_DT,
+                                           integrator=integrator)
+            pb, xs, us = robot_inputs(spec, params, ROBOT_B, seed=0)
+            feasible = torch.arange(ROBOT_B, device=device) == 0
+            label = (f"robots {robot} {spec.integrator} (nv {spec.model.nv}, "
+                     f"nu {spec.nu}, {len(spec.slots)} slots)")
+            for name, e in _kernel_parity(spec, pb, xs, us, feasible, label,
+                                          witnesses=True).items():
+                errs[name] = max(errs.get(name, 0.0), e)
+        out[robot] = errs
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2078,6 +2573,16 @@ def phase_serving(device):
         ctrl.params0, 1)._replace(x0=gbuf.x))
     errs = _offline_parity(ctrl.spec, params, (gbuf.xs, gbuf.us), "serving",
                            box=False)
+    # each kernel's bound at the served tick's shapes (B=1, T=29, f32)
+    p32 = P.map_params(lambda a: a.to(torch.float32), params)
+    calls = kernel_calls(SimpleNamespace(spec=ctrl.spec), p32,
+                         gbuf.xs.to(torch.float32), gbuf.us.to(torch.float32),
+                         torch.tensor([True], device=device), reg=1e-2)
+    for name, (kern, _, ins, flops) in calls.items():
+        errs[name]["bound_ms"], errs[name]["bound_by"] = bound_ms(
+            ins, kern(), flops)
+        say(f"serving bound f32 B=1 T={ctrl.spec.T} {name}: "
+            f"{errs[name]['bound_ms']:.5f} ms by {errs[name]['bound_by']}")
     del step, gbuf, ebuf
 
     # 4. the bench's numbers in float32
@@ -2259,7 +2764,8 @@ def main():
     con_launches, con_stats = phase_contacts(device)
     say(f"phase contacts: {time.time() - t_phase:.1f} s")
     t_phase = time.time()
-    rk4_launches, rk4_per_tick, rk4_stats = phase_rk4(device)
+    (rk4_launches, rk4_per_tick, rk4_stats, rk4c_launches,
+     rk4c_stats) = phase_rk4(device)
     say(f"phase rk4: {time.time() - t_phase:.1f} s")
     t_phase = time.time()
     par_launches, par_errs = phase_parallel(device)
@@ -2267,6 +2773,9 @@ def main():
     t_phase = time.time()
     srv_launches, srv_traced, srv_errs, _ = phase_serving(device)
     say(f"phase serving: {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    robot_errs = phase_robots(device)
+    say(f"phase robots: {time.time() - t_phase:.1f} s")
     foreign = sorted(m for m in sys.modules
                      if m in ("jax", "eagle_mpc_tpu", "tools")
                      or m.startswith(("jax.", "eagle_mpc_tpu.", "tools.")))
@@ -2296,7 +2805,8 @@ def main():
          "parallel_max_abs_err": par_errs[name],
          "serving": {"launches_per_replayed_tick": srv_launches[name],
                      "launches_in_traced_replay": srv_traced[name],
-                     "max_abs_err": srv_errs[name]["max_abs_err"]},
+                     **{k: srv_errs[name][k] for k in
+                        ("max_abs_err", "bound_ms", "bound_by")}},
          "contacts": {CONTACT_MISSIONS[key][0]: con_stats[key][name]
                       for key in CONTACT_MISSIONS},
          "rk4": dict({k: rk4_stats[name][k] for k in
@@ -2305,7 +2815,10 @@ def main():
                      launches_per_tick=rk4_per_tick[name],
                      **{k: rk4_stats[name][k] for k in
                         ("jax_max_abs_err", "clip_max_abs_err")
-                        if k in rk4_stats[name]}),
+                        if k in rk4_stats[name]},
+                     contacts=dict({m: rk4c_stats[m][name] for m in rk4c_stats},
+                                   launches=rk4c_launches[name])),
+         "robots_max_abs_err": {r: robot_errs[r][name] for r in robot_errs},
          **({"offline_box_max_abs_err": box_stats[name]["max_abs_err"],
              "slotless_max_abs_err": box_stats[name]["slotless_max_abs_err"]}
             if name in box_stats else {})}

@@ -57,9 +57,10 @@
 //    at x^ (the gravity shift) and the contact rows at x^ (contact_hat).
 // 5. Every output leaves as contiguous runs: consecutive lanes write
 //    consecutive entries (a row of Fx / Fu at a time).
-// 7. An RK4 spec (free flight) runs a kernel of its own, node_rk4_kernel
-//    (below): the stage tangents carried through the RK4 chain, full rows
-//    at every stage point.
+// 7. An RK4 spec runs a kernel of its own, node_rk4_kernel (below): the
+//    stage tangents carried through the RK4 chain, full rows at every
+//    stage point; on a contact spec the IFT rule of item 6 at each stage
+//    point, along that stage's tangent.
 //
 // What bounds it on an H100: latency. A node is a chain of about 50
 // barrier phases in one warp (the cooperative primal's CRBA and Cholesky,
@@ -466,44 +467,52 @@ __device__ __noinline__ void contact_hat(const ModelDesc& d, const CoopContact<S
   }
 }
 
-// the contact part of da/dz_j (the IFT rule in the header): on entry da
-// holds -d RNEA|a (state direction) or dtau/ds (control direction); on
-// exit da/dz_j. Also column j of the cone slots' Jacobians into Jc
-// (row stride nz). The dual evaluation runs along x (+) t e_j from the raw
-// x, as the plain version's: its value is x^, and off |q| = 1 its position
-// tangent is not the one from x^.
+// the contact part of a tangent of the constrained dynamics at the point
+// y (the IFT rule in the header), with the primal's factors of M and G in
+// W and C and the acceleration a, the multipliers lam and the contact
+// frames' world rotations Rf at y: on entry da holds dtau - d RNEA|a
+// along the direction, on exit the direction's da. The contact rows'
+// tangents dJ, da0 and dRf are one dual evaluation along y (+) t dy, with
+// dy the unit direction e_j when null (j >= ndx: none, a control direction
+// of the Euler step, which leaves y where it is). Also the direction's
+// column of the cone slots' rows, A (dRf f + Rf df), into Jc[r * stride]
+// for the cone rows r: counted among the cone rows alone, or with
+// res_rows among all the residual rows. The Euler step runs it from the
+// raw x along e_j, as the plain version's x (+) z: its value is x^, and
+// off |q| = 1 its position tangent is not the one from x^.
 template <class S>
 __device__ __noinline__ void contact_tangent(const ModelDesc& d, const CoopNode<S>& W,
                                              const CoopContact<S>& C, const S* np,
-                                             const S* ah, const S* lamh, const S* Rfh, int j,
-                                             S* da, S* Jc, int nz) {
+                                             const S* y, const S* dy, int j, const S* a,
+                                             const S* lam, const S* Rf, S* da, S* Jc,
+                                             int stride, bool res_rows) {
   typedef Dual<S> D;
   const int nv = d.nv, nc = d.nc, ndx = 2 * nv, nx = d.nq + nv;
   S dJa[EM_MAX_NC], da0[EM_MAX_NC], dRf[EM_MAX_CON][9];
   for (int i = 0; i < nc; ++i) dJa[i] = da0[i] = S(0);
   for (int c = 0; c < d.n_con; ++c)
     for (int i = 0; i < 9; ++i) dRf[c][i] = S(0);
-  if (j < ndx) {
-    D xd[EM_MAX_NX], z[EM_MAX_NDX], y[EM_MAX_NX];
-    for (int i = 0; i < nx; ++i) xd[i] = D(W.xt[i]);
-    for (int i = 0; i < ndx; ++i) z[i] = D(S(0), S(i == j ? 1 : 0));
-    integrate<S, D>(d, xd, z, y);
+  if (dy || j < ndx) {
+    D xd[EM_MAX_NX], z[EM_MAX_NDX], yy[EM_MAX_NX];
+    for (int i = 0; i < nx; ++i) xd[i] = D(y[i]);
+    for (int i = 0; i < ndx; ++i) z[i] = D(S(0), dy ? dy[i] : S(i == j ? 1 : 0));
+    integrate<S, D>(d, xd, z, yy);
     for (int c = 0; c < d.n_con; ++c) {
-      D J[EM_MAX_NC * EM_MAX_NV], a0[EM_MAX_NC], Rf[9];
-      contact_rows<S, D>(d, c, y, np, J, a0, Rf);
+      D J[EM_MAX_NC * EM_MAX_NV], a0[EM_MAX_NC], Rfd[9];
+      contact_rows<S, D>(d, c, yy, np, J, a0, Rfd);
       const int r0 = d.con_row[c];
       const S act = np[d.con_act_off + c];
       for (int r = 0; r < d.con_dim[c]; ++r) {
         S s = S(0);
         for (int m = 0; m < nv; ++m) {
           const S dJ = act * J[EM_MAX_NV * r + m].d;
-          da[m] = da[m] + dJ * lamh[r0 + r];
-          s = s + dJ * ah[m];
+          da[m] = da[m] + dJ * lam[r0 + r];
+          s = s + dJ * a[m];
         }
         dJa[r0 + r] = s;
         da0[r0 + r] = a0[r].d;
       }
-      for (int i = 0; i < 9; ++i) dRf[c][i] = Rf[i].d;
+      for (int i = 0; i < 9; ++i) dRf[c][i] = Rfd[i].d;
     }
   }
   chol_solve(W.M, nv, EM_MAX_NV, da);
@@ -522,22 +531,25 @@ __device__ __noinline__ void contact_tangent(const ModelDesc& d, const CoopNode<
   }
   int row = 0;
   for (int k = 0; k < d.n_slots; ++k) {
-    if (d.slot_kind[k] != EM_KIND_FRICTION_CONE) continue;
+    if (d.slot_kind[k] != EM_KIND_FRICTION_CONE) {
+      if (res_rows) row += d.slot_nr[k];
+      continue;
+    }
     const int c = d.slot_contact[k];
     S col[EM_CONE_ROWS];
     if (c < 0) {
       for (int i = 0; i < EM_CONE_ROWS; ++i) col[i] = S(0);
     } else {
       // d (Rf f) = dRf f + Rf df, then A
-      const S* f = lamh + d.con_row[c];
+      const S* f = lam + d.con_row[c];
       const S* df = dlam + d.con_row[c];
-      S a[3], b[3], t[3];
-      mv3(dRf[c], f, a);
-      mv3(Rfh + 9 * c, df, b);
-      for (int i = 0; i < 3; ++i) t[i] = a[i] + b[i];
+      S u[3], v[3], t[3];
+      mv3(dRf[c], f, u);
+      mv3(Rf + 9 * c, df, v);
+      for (int i = 0; i < 3; ++i) t[i] = u[i] + v[i];
       cone_apply<S, S>(d, k, t, col);
     }
-    for (int i = 0; i < EM_CONE_ROWS; ++i) Jc[(row + i) * nz + j] = col[i];
+    for (int i = 0; i < EM_CONE_ROWS; ++i) Jc[(row + i) * stride] = col[i];
     row += EM_CONE_ROWS;
   }
 }
@@ -625,7 +637,7 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
     else
       control_tangent<S>(d, W, gp, j - ndx, daj);
     if constexpr (CON)
-      contact_tangent<S>(d, W, *C, np, ah, lamh, Rfh, j, daj, Jc, nz);
+      contact_tangent<S>(d, W, *C, np, W.xt, nullptr, j, ah, lamh, Rfh, daj, Jc + j, nz, false);
     else
       chol_solve(W.M, nv, EM_MAX_NV, daj);
   }
@@ -787,7 +799,7 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
 }
 
 // ---------------------------------------------------------------------------
-// K1 on an RK4 spec (free flight)
+// K1 on an RK4 spec
 // ---------------------------------------------------------------------------
 //
 // The outputs are the derivatives of problem.node_calc_diff's RK4 rows
@@ -812,12 +824,24 @@ node_kernel(const ModelDesc* __restrict__ desc, int N, int T,
 //      and its Gauss-Newton terms added to g and H.
 // 3. [Fx Fu] column j = d/dt (x (+) t e_j) (+) (w + t dw) (-) xnext0, w the
 //    k-sum times dt/6 at x^ and dw its tangent: one dual evaluation a lane.
+// 4. A contact spec (the instantiation CON): every dynamics pass is the
+//    constrained one (the contact rows at its stage point, the node's
+//    activity at all four, the masked KKT solve), and a direction's da_i
+//    follows the IFT rule of the header's item 6 at y_i along dy_i
+//    (contact_tangent): dJ, da0 and dRf are not zero for a control
+//    direction at stages 1 to 3, where y_i moves with s through a_0 ..
+//    a_{i-1}. The cone slots' rows at y_i are A Rf_i f_i with the stage's
+//    forces, their columns A (dRf_i f_i + Rf_i df_i) from the same step
+//    (rk4_slot_column evaluates slots without forces). The stages run at
+//    x^ directly, so the Euler step's gravity shift (contact_hat) has no
+//    role; xnext0 stays at the raw x.
 // A block takes as many nodes (one warp each, up to K1_NODES) as the
 // device's shared memory admits; the launcher sizes it.
 
 // offsets (in scalars) of one warp's shared arrays on an RK4 spec, after
 // its CoopNode
 struct K1Rk4Layout {
+  int C;      // the contact path: the CoopContact working set
   int J;      // [n_res][nz] the residual rows' Jacobian at the current stage
   int H;      // [nz][nz] the Gauss-Newton Hessian, summed over the stages
   int g;      // [nz] the gradient, summed over the stages
@@ -838,6 +862,7 @@ __host__ __device__ inline K1Rk4Layout k1_rk4_layout(const ModelDesc& d) {
   const int nv = d.nv, ndx = 2 * nv, nz = ndx + d.nu, n_res = d.n_res;
   K1Rk4Layout o;
   int at = 0;
+  o.C = at;   at += contact_path(d) ? (int)(sizeof(CoopContact<double>) / sizeof(double)) : 0;
   o.J = at;   at += n_res * nz;
   o.H = at;   at += nz * nz;
   o.g = at;   at += nz;
@@ -904,18 +929,24 @@ __device__ __noinline__ void rk4_slot_column(const ModelDesc& d, const S* y, con
 }
 
 // the stage tangents of direction j at stage i (the primal at y_i in W, k_i
-// = [v(y_i), a_i]): da_i, dk_i into the k-sum's tangent, the residual rows'
-// column j at y_i into J (and, for j = 0, their values), and dy_{i+1}
-template <class S>
-__device__ __noinline__ void rk4_direction(const ModelDesc& d, const CoopNode<S>& W, int i,
-                                           int j, const S* x, const S* ynext, const S* np,
-                                           S* dy, S* dw, const S* dtau, S* J, int nz,
-                                           S* val) {
+// = [v(y_i), a_i]; with CON the constrained one, its factors in C): da_i,
+// dk_i into the k-sum's tangent, the residual rows' column j at y_i into J
+// (and, for j = 0, their values), and dy_{i+1}
+template <class S, bool CON>
+__device__ __noinline__ void rk4_direction(const ModelDesc& d, const CoopNode<S>& W,
+                                           const CoopContact<S>* C, int i, int j, const S* x,
+                                           const S* ynext, const S* np, S* dy, S* dw,
+                                           const S* dtau, S* J, int nz, S* val) {
   const int nv = d.nv, ndx = 2 * nv;
   S da[EM_MAX_NV], k[EM_MAX_NDX], dk[EM_MAX_NDX];
   rnea_tangent<S>(d, W, W.xt + 3, TangentDir<S>{dy}, da);
   for (int c = 0; c < nv; ++c) da[c] = da[c] + dtau[c];
-  chol_solve(W.M, nv, EM_MAX_NV, da);
+  if constexpr (CON)
+    // at stage 0 a control direction leaves y_0 = x^ where it is
+    contact_tangent<S>(d, W, *C, np, W.xt, i == 0 && j >= ndx ? nullptr : dy, j, W.rhs,
+                       C->lam, &C->Rf[0][0], da, J + j, nz, true);
+  else
+    chol_solve(W.M, nv, EM_MAX_NV, da);
   for (int c = 0; c < nv; ++c) {
     k[c] = W.xt[d.nq + c];
     k[nv + c] = W.rhs[c];
@@ -925,14 +956,24 @@ __device__ __noinline__ void rk4_direction(const ModelDesc& d, const CoopNode<S>
   for (int c = 0; c < ndx; ++c)
     dw[c] = i == 0 ? dk[c] : (i == 3 ? dw[c] + dk[c] : dw[c] + S(2) * dk[c]);
   const int ju = j - ndx;
-  for (int kk = 0, row = 0; kk < d.n_slots; row += d.slot_nr[kk], ++kk)
+  for (int kk = 0, row = 0; kk < d.n_slots; row += d.slot_nr[kk], ++kk) {
+    if (CON && d.slot_kind[kk] == EM_KIND_FRICTION_CONE) {
+      // the column came from contact_tangent; the values from the forces
+      const int c = d.slot_contact[kk];
+      if (j == 0 && c >= 0)
+        cone_rows<S, S>(d, kk, C->Rf[c], C->lam + d.con_row[c], val + row);
+      else if (j == 0)
+        for (int q = 0; q < EM_CONE_ROWS; ++q) val[row + q] = S(0);
+      continue;
+    }
     rk4_slot_column<S>(d, W.xt, W.u, kk, dy, ju, np, J + row * nz + j, nz,
                        j == 0 ? val + row : nullptr);
+  }
   if (i < 3)
     rk4_chain_tangent<S>(d, x, j, k, dk, i == 2 ? S(d.dt) : S(d.dt / 2), ynext, dy);
 }
 
-template <class S>
+template <class S, bool CON>
 __global__ void __launch_bounds__(32 * K1_NODES)
 node_rk4_kernel(const ModelDesc* __restrict__ desc, int N, int T, int nodes,
                 const S* __restrict__ x, const S* __restrict__ s,
@@ -961,6 +1002,7 @@ node_rk4_kernel(const ModelDesc* __restrict__ desc, int N, int T, int nodes,
   S* act = sm + lay.act;
   S* wA = sm + lay.wA;
   S* wAA = sm + lay.wAA;
+  CoopContact<S>* C = reinterpret_cast<CoopContact<S>*>(sm + lay.C);
 
   const size_t nn = (size_t)n;
   const S* xg = x + nn * nx;
@@ -975,7 +1017,7 @@ node_rk4_kernel(const ModelDesc* __restrict__ desc, int N, int T, int nodes,
 
   // 1. xnext0 at x into W.xc
   for (int i = 0; i < 4; ++i) {
-    coop_dam<S, 32, false>(d, lane, W, nullptr, np, gp, false);
+    coop_dam<S, 32, CON>(d, lane, W, C, np, gp, false);
     if (lane == 0) rk4_stage<S>(d, i, xg, W.xt, W.rhs, ks, i < 3 ? W.xt : W.xc);
     __syncwarp();
   }
@@ -1000,7 +1042,7 @@ node_rk4_kernel(const ModelDesc* __restrict__ desc, int N, int T, int nodes,
   __syncwarp();
   S c_total = S(0);
   for (int i = 0; i < 4; ++i) {
-    coop_dam<S, 32, false>(d, lane, W, nullptr, np, gp, false);
+    coop_dam<S, 32, CON>(d, lane, W, C, np, gp, false);
     __syncwarp();
     if (lane == 0) rnea_forward<S, S>(d, W.xt, W.rhs, W.k, W.acc);
     __syncwarp();
@@ -1012,8 +1054,8 @@ node_rk4_kernel(const ModelDesc* __restrict__ desc, int N, int T, int nodes,
     }
     __syncwarp();
     for (int j = lane; j < nz; j += 32)
-      rk4_direction<S>(d, W, i, j, xg, y, np, DY + j * ndx, DW + j * ndx, DT + j * nv, J, nz,
-                       val);
+      rk4_direction<S, CON>(d, W, C, i, j, xg, y, np, DY + j * ndx, DW + j * ndx, DT + j * nv,
+                            J, nz, val);
     __syncwarp();
     // the stage's activations, a residual row per lane, weighted c_i w_k
     const S ci = S(rk4_coeff(d, i));
@@ -1081,7 +1123,8 @@ static int launch_node(const void* desc, const ModelDesc* host_desc, int N, int 
                        S* Fx, S* Fu, S* Lx, S* Lu, S* Lxx, S* Lxu, S* Luu,
                        void* stream) {
   if (host_desc->integrator == EM_RK4) {
-    if (contact_path(*host_desc)) return (int)cudaErrorInvalidValue;   // not instantiated
+    const auto kernel = contact_path(*host_desc) ? &node_rk4_kernel<S, true>
+                                                 : &node_rk4_kernel<S, false>;
     int dev = 0, limit = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
@@ -1093,12 +1136,11 @@ static int launch_node(const void* desc, const ModelDesc* host_desc, int N, int 
     if (nodes == 0) return (int)cudaErrorInvalidValue;
     const size_t smem = nodes * per_node;
     if (smem > 48 * 1024) {
-      e = cudaFuncSetAttribute(&node_rk4_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
     if (N > 0)
-      node_rk4_kernel<S><<<(N + nodes - 1) / nodes, 32 * nodes, smem, (cudaStream_t)stream>>>(
+      kernel<<<(N + nodes - 1) / nodes, 32 * nodes, smem, (cudaStream_t)stream>>>(
           (const ModelDesc*)desc, N, T, nodes, x, s, node_par, glob_par, cost, xnext, Fx, Fu,
           Lx, Lu, Lxx, Lxu, Luu);
     return (int)cudaGetLastError();
@@ -1117,9 +1159,30 @@ static int launch_node(const void* desc, const ModelDesc* host_desc, int N, int 
   return (int)cudaGetLastError();
 }
 
+// the shared memory of the smallest block launch_node launches on the spec
+// (one node on an RK4 spec, K1_NODES otherwise) and the device's opt-in
+// limit a block (0 when it cannot be read)
+template <class S>
+static long long node_smem(const ModelDesc* hd, int* limit) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    *limit = 0;
+  return (long long)(hd->integrator == EM_RK4 ? k1_rk4_node_bytes<S>(*hd)
+                                              : k1_smem_bytes<S>(k1_layout(*hd)));
+}
+
 extern "C" {
 
 int eagle_desc_size() { return (int)sizeof(ModelDesc); }
+
+long long eagle_node_smem_f32(const void* host_desc, int* limit) {
+  return node_smem<float>((const ModelDesc*)host_desc, limit);
+}
+
+long long eagle_node_smem_f64(const void* host_desc, int* limit) {
+  return node_smem<double>((const ModelDesc*)host_desc, limit);
+}
 
 int eagle_node_f32(const void* desc, const void* host_desc, int N, int T, const float* x, const float* s,
                    const float* node_par, const float* glob_par, float* cost,

@@ -49,10 +49,14 @@
 //   at y0 = x_try and the stage points y1..y3 that the group's first
 //   thread puts into the working set's state between the passes
 //   (model.cuh rk4_stage); the cost threads of each pass take the slots at
-//   that pass's stage point, weighted dt/6, dt/3, dt/3, dt/6. Each group's
-//   CoopRk4 (x_try and the k-sum) is allocated for an RK4 spec only; the
-//   kernel is instantiated per integrator, so the Euler step's code has no
-//   RK4 branch.
+//   that pass's stage point, weighted dt/6, dt/3, dt/3, dt/6. On a contact
+//   spec each pass also runs the contact rows at its stage point, the
+//   masked KKT solve and, on the first thread, the friction cone's cost
+//   from that stage's forces (the contact's activity is the node's at all
+//   four). Each group's CoopRk4 (x_try and the k-sum) is allocated for an
+//   RK4 spec only; the kernel is instantiated per integrator and per path
+//   (free flight or contacts), so the Euler step's code has no RK4 branch
+//   and a free-flight spec's none of the contacts.
 // - xs_try and us_try leave per node as contiguous runs written by the
 //   group; cs is staged for the whole horizon and leaves as one run per
 //   lane.
@@ -138,16 +142,17 @@ __device__ __noinline__ void ro_gap_and_error(const ModelDesc& d, CoopNode<S>& G
 }
 
 // the RK4 node step of one group: (xt = x_try, usq) -> xc and the running
-// cost's quadrature into *c_out
-template <class S>
+// cost's quadrature into *c_out (a contact spec: the constrained dynamics
+// and the cone's cost at each stage point, in C)
+template <class S, bool CON>
 __device__ __forceinline__ void rk4_dyn_next(const ModelDesc& d, int l, CoopNode<S>& W,
-                                             CoopRk4<S>& R, const S* np, const S* gp,
-                                             S* c_out) {
+                                             CoopContact<S>* C, CoopRk4<S>& R, const S* np,
+                                             const S* gp, S* c_out) {
   const int nx = d.nq + d.nv;
   for (int i = l; i < nx; i += RO_G) R.x[i] = W.xt[i];
   S c = S(0);
   for (int i = 0; i < 4; ++i) {
-    coop_dam<S, RO_G, false>(d, l, W, nullptr, np, gp, true);
+    coop_dam<S, RO_G, CON>(d, l, W, C, np, gp, true);
     if (l == 0) {
       c = c + S(rk4_coeff(d, i)) * coop_cost_sum(d, W);
       rk4_stage<S>(d, i, R.x, W.xt, W.rhs, R.ksum, i < 3 ? W.xt : W.xc);
@@ -230,7 +235,7 @@ rollout_kernel(const ModelDesc* __restrict__ desc, int B, int A, int T, int box,
       for (int i = l; i < nu; i += RO_G) us_try[lt * nu + i] = G.u[i];
     }
     if constexpr (RK4)
-      rk4_dyn_next<S>(d, l, G, rks[g], np_t, gp, cst + g * T + t);
+      rk4_dyn_next<S, CON>(d, l, G, cons + g, rks[g], np_t, gp, cst + g * T + t);
     else
       coop_dyn_next<S, RO_G, CON>(d, l, G, cons + g, np_t, gp, cst + g * T + t);
     __syncthreads();
@@ -252,12 +257,11 @@ static int launch_rollout(const void* desc, const ModelDesc* hd, int B, int A, i
   if (A < 1 || threads > RO_MAX_THREADS) return (int)cudaErrorInvalidValue;
   const int ngroups = threads / RO_G;
   const bool con = contact_path(*hd), rk4 = hd->integrator == EM_RK4;
-  if (con && rk4) return (int)cudaErrorInvalidValue;   // not instantiated
   const size_t smem = ngroups * (sizeof(CoopNode<S>) + (con ? sizeof(CoopContact<S>) : 0)
                                  + (rk4 ? sizeof(CoopRk4<S>) : 0))
       + sizeof(S) * ((size_t)2 * ro_op_len(hd->nq + hd->nv, 2 * hd->nv, hd->nu, hd->node_dim)
                      + hd->glob_dim + (size_t)ngroups * T);
-  const auto kernel = con ? &rollout_kernel<S, true, false>
+  const auto kernel = con ? (rk4 ? &rollout_kernel<S, true, true> : &rollout_kernel<S, true, false>)
                           : (rk4 ? &rollout_kernel<S, false, true> : &rollout_kernel<S, false, false>);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -166,6 +166,9 @@ def library() -> ctypes.CDLL:
         raise RuntimeError("ModelDesc layout differs between csrc/model.cuh "
                            "and ops/_cuda.py")
     for prec, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        fn = getattr(lib, f"eagle_node_smem_{prec}")
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [_P, _P]
         fn = getattr(lib, f"eagle_node_{prec}")
         fn.restype = _I
         fn.argtypes = [_P, _P, _I, _I] + [_P] * 13 + [_P]
@@ -185,7 +188,19 @@ def call(name: str, dtype, *args) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(library(), f"{name}_{prec}")(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{name}_{prec}: CUDA error {err}")
+        note = _node_smem_note(prec, args[1]) if name == "eagle_node" else ""
+        raise RuntimeError(f"{name}_{prec}: CUDA error {err}{note}")
+
+
+def _node_smem_note(prec: str, host_desc: int) -> str:
+    """The shared memory K1's smallest block needs on the spec at
+    ``host_desc`` (one node under RK4, four otherwise) beside the device's
+    limit a block: the launcher refuses a spec when no node fits."""
+    limit = ctypes.c_int(0)
+    need = getattr(library(), f"eagle_node_smem_{prec}")(
+        host_desc, ctypes.byref(limit))
+    return (f" (K1 needs {need} bytes of shared memory a block on this spec;"
+            f" the device gives {limit.value})")
 
 
 # ---------------------------------------------------------------------------
@@ -231,12 +246,6 @@ def make_descriptor(spec: P.ProblemSpec) -> ModelDesc:
             f"{spec.nc_rows} constraint rows > {MAX_NC})")
     if spec.nu != n_rot + m.nj:
         raise NotImplementedError("controls must be rotor thrusts + joint torques")
-    if spec.integrator == P.RK4 and (spec.contacts or any(
-            s.kind == C.FRICTION_CONE for s in spec.slots)):
-        raise NotImplementedError(
-            "RK4 with contacts runs on the plain path only: the kernels' RK4 "
-            "branch is free flight (ROADMAP queue 2, RK4 with contacts in "
-            "K1/K2)")
     d = ModelDesc()
     d.joint_p[:3 * m.nj] = np.asarray(m.joint_p, float).reshape(-1).tolist()
     d.joint_R[:9 * m.nj] = np.asarray(m.joint_R, float).reshape(-1).tolist()

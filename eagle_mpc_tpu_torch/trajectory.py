@@ -3,10 +3,12 @@
     python3 -m eagle_mpc_tpu_torch.trajectory [robot] [mission] [--dt 30]
         [--maxiter 400] [--f64] [--verbose] [--cpu]
         [--batch B --noise 0.05 --seed S] [--out PATH.npz] [--plot DIR]
+        [--integrator IntegratedActionModelEuler|IntegratedActionModelRK4]
 
 Loads ``missions/<robot>/trajectories/<mission>.yaml``, builds the problem
-(``problem.from_trajectory``, squashed controls, Euler; a mission with
-contacts gets the contact-constrained dynamics) and solves it with
+(``problem.from_trajectory``, squashed controls, Euler unless
+``--integrator`` names RK4; a mission with contacts gets the
+contact-constrained dynamics) and solves it with
 ``sbfddp.solve`` (homotopy stages of the while-loop FDDP, then the DDP
 polish), on the card unless ``--cpu`` is given. On the card the solve
 runs twice and the second time is the steady one: the first includes the
@@ -62,6 +64,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="write the solution (npz)")
     ap.add_argument("--plot", metavar="DIR", default=None,
                     help="write the solution's figures into DIR")
+    ap.add_argument("--integrator", default="IntegratedActionModelEuler",
+                    choices=("IntegratedActionModelEuler",
+                             "IntegratedActionModelRK4"))
     args = ap.parse_args(argv)
 
     if not args.cpu and not torch.cuda.is_available():
@@ -72,7 +77,7 @@ def main(argv=None) -> int:
     traj = load_trajectory(f"{args.robot}/trajectories/{args.mission}.yaml",
                            yaml_dir=MISSIONS)
     spec, params = P.from_trajectory(traj, dt_ms=args.dt, use_squash=True,
-                                     integrator="IntegratedActionModelEuler",
+                                     integrator=args.integrator,
                                      dtype=dtype, device=device)
     pb = (perturbed_x0_batch(params, args.batch, args.noise, args.seed)
           if args.batch > 1 else P.expand_params(params, 1))

@@ -144,17 +144,18 @@ def test_pack_params_matches_descriptor(ctrls):
                                     "contact_rows", "cone_contact",
                                     "rk4_contacts"])
 def test_out_of_scope_spec_raises(ctrls, change):
-    """The kernels take Euler, free or contact dynamics with up to 6
-    constraint rows (one 6-D contact or two 3-D ones), RK4 in free flight,
-    and 0 to 12 STATE / CONTROL / frame / friction-cone slots; any other
-    spec raises instead of running a different path. Raise: frame_cost, a
-    frame slot past the 12 the kernels hold; contact_rows, a 6-D and a 3-D
-    contact (9 rows); cone_contact, a cone on a contact the spec lacks;
-    rk4_contacts, RK4 with a contact or a friction cone (the plain path
-    only). Taken: rk4, the RK4 integrator in free flight (the descriptor
-    says so); no_slots, the slot-less spec (as the JAX package evaluates
-    it), with a contact too; contacts, the gripper's 3-D or 6-D contact, or
-    two 3-D ones; friction_cone, a cone on the gripper's contact."""
+    """The kernels take Euler or RK4, free or contact dynamics with up to
+    6 constraint rows (one 6-D contact or two 3-D ones), and 0 to 12 STATE
+    / CONTROL / frame / friction-cone slots; any other spec raises instead
+    of running a different path. Raise: frame_cost, a frame slot past the
+    12 the kernels hold; contact_rows, a 6-D and a 3-D contact (9 rows);
+    cone_contact, a cone on a contact the spec lacks. Taken: rk4, the RK4
+    integrator in free flight (the descriptor says so); rk4_contacts, RK4
+    with a contact, a contact and its friction cone, or a cone without a
+    contact (packed as the Euler contact spec, integrator 1); no_slots, the
+    slot-less spec (as the JAX package evaluates it), with a contact too;
+    contacts, the gripper's 3-D or 6-D contact, or two 3-D ones;
+    friction_cone, a cone on the gripper's contact."""
     spec = ctrls[1].spec
     grip = C.CostSlot("grip", C.FRAME_TRANSLATION, C.QUAD, 3, 3, frame_id=0)
     fid = spec.model.frame_id("flying_arm_3__gripper")
@@ -171,13 +172,14 @@ def test_out_of_scope_spec_raises(ctrls, change):
         "cone_contact": dict(slots=spec.slots + (cone._replace(contact_id=1),),
                              contacts=(c3,)),
     }
-    rk4_bad = [dict(integrator=P.RK4, contacts=(c3,)),
-               dict(integrator=P.RK4, slots=spec.slots + (cone,),
-                    contacts=(c3,)),
-               dict(integrator=P.RK4, slots=spec.slots + (
-                   cone._replace(contact_id=-1),))]
+    rk4_contacts = [dict(integrator=P.RK4, contacts=(c3,)),
+                    dict(integrator=P.RK4, slots=spec.slots + (cone,),
+                         contacts=(c3,)),
+                    dict(integrator=P.RK4, slots=spec.slots + (
+                        cone._replace(contact_id=-1),))]
     taken = {
         "rk4": [dict(integrator=P.RK4)],
+        "rk4_contacts": rk4_contacts,
         "no_slots": [dict(slots=()), dict(slots=(), contacts=(c3,))],
         "frame_cost": [dict(slots=spec.slots + (grip,) * (
             _cuda.MAX_SLOTS - len(spec.slots)))],
@@ -189,10 +191,16 @@ def test_out_of_scope_spec_raises(ctrls, change):
         with pytest.raises(NotImplementedError):
             _cuda.make_descriptor(change_spec(**bad[change]))
     if change == "rk4_contacts":
-        for kw in rk4_bad:
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-                _cuda.make_descriptor(change_spec(**kw))
-            P.check_scope(change_spec(**kw))    # the plain path takes it
+        # each packs as its Euler twin does, with the RK4 integrator
+        for kw in rk4_contacts:
+            d = _cuda.make_descriptor(change_spec(**kw))
+            euler = _cuda.make_descriptor(change_spec(**dict(kw, integrator=P.EULER)))
+            assert d.integrator == 1 and euler.integrator == 0
+            euler.integrator = 1
+            assert bytes(d) == bytes(euler)
+        cones = [_cuda.make_descriptor(change_spec(**kw)).slot_contact[
+            len(spec.slots)] for kw in rk4_contacts[1:]]
+        assert cones == [0, -1]
     for kw in taken.get(change, ()):
         d = _cuda.make_descriptor(change_spec(**kw))
         assert d.n_con == len(kw.get("contacts", ()))

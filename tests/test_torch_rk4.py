@@ -15,7 +15,7 @@ here):
   tests/test_missions.py (iris hover, dt 60, maxiter 100);
 - a CarrotMpc with RK4 nodes on iris hover (tests/test_mpc.py's
   ``TestRk4ClosedLoop``): its update and one closed-loop tick;
-- one monkey_bar contact node with RK4 on the plain path, and ``convert``
+- monkey_bar contact nodes with RK4 on the plain path, and ``convert``
   carrying the integrator.
 """
 
@@ -237,10 +237,11 @@ def test_carrot_mpc_with_rk4_nodes(fx):
 
 
 def test_contact_node_with_rk4(fx):
-    """monkey_bar with RK4 nodes on the plain path (the kernels take RK4 in
-    free flight only): node derivatives at hang nodes 1 and 15 (the
-    gripper's contact active) and at the free node 35 of the contact
-    fixture's solution, against the JAX package's."""
+    """monkey_bar with RK4 nodes on the plain path (K1's plain version;
+    tests/test_torch_rk4_contacts.py has the other contact cases): node
+    derivatives at hang nodes 1 and 15 (the gripper's contact active) and
+    at the free node 35 of the contact fixture's solution, against the JAX
+    package's."""
     spec, params = _build(f"{FLAGSHIP}/trajectories/monkey_bar.yaml", 40)
     assert spec.integrator == P.RK4 and len(spec.contacts) == 1
     with np.load(os.path.join(FIXTURES, "torch_port_contacts.npz")) as z:

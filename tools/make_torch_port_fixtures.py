@@ -150,7 +150,24 @@ with ``integrator="IntegratedActionModelRK4"``):
   the hold-padded warm start;
 - ``mb_*``: ``node_calc_diff`` of monkey_bar at dt 40 ms with RK4 nodes
   at the contact fixture's solution, hang nodes 1 and 15 and the free
-  node 35.
+  node 35;
+- ``ecr4_*``: ``node_calc_diff`` of eagle_catch at dt 50 ms with RK4
+  nodes at the contact fixture's rough candidate (``ecr_*``), its contact
+  nodes 31 and 34, where the friction cone's barrier is active;
+- ``ecfp_*``: ``fddp._forward_pass`` of eagle_catch at dt 50 ms with RK4
+  nodes and every cone's mu TIGHT_MU at the contact fixture's solution
+  (``ec_*``) for the 10 alphas, infeasible, with the gains and gaps of
+  ``fddp._compute_direction`` there (regularization 1e-9): the cone's
+  barrier is active along the rollouts;
+- monkey_bar at dt 100 ms (T = 18) with RK4 nodes: ``mbit_*``
+  ``fddp.solve_fddp`` from ``default_init`` with every candidate state's
+  base turned by RK4_TURN about its y axis (the hanging start is turned by
+  pi from the state references, on the rotation log's branch cut, where
+  the gradients' sign follows round-off at the RK4 stage points), maxiter
+  3, th_stop 1e-9, the trace recorded; ``mbfp_*``
+  ``fddp._forward_pass`` for the 10 alphas at that start and at
+  ``mbit_*``'s result, both infeasible, with the gains and gaps of
+  ``fddp._compute_direction`` there (regularization 1e-9).
 
 The scale-out layer (``torch_port_parallel.npz``, ``parallel``), iris
 hover at dt 100 ms (T = 11):
@@ -821,6 +838,8 @@ def contacts_fixture(missions):
 
 
 RK4 = "IntegratedActionModelRK4"
+RK4_TURN = 1e-3   # rad: monkey_bar's RK4 iterations start off the log's cut
+TIGHT_MU = 0.1    # a slippery eagle_catch: the friction cone's barrier active
 
 
 def rk4_fixture(missions, mp, traj, ref, sim):
@@ -952,6 +971,102 @@ def rk4_fixture(missions, mp, traj, ref, sim):
     out["mb_nodes"] = nodes
     out.update({f"mb_cd_{n}": np.stack([host(getattr(g, n)) for g in got])
                 for n in P.NodeDerivatives._fields})
+    out.update(rk4_contacts_fixture(missions))
+    return out
+
+
+def rk4_contacts_fixture(missions):
+    """The contact missions with RK4 nodes (module docstring: ``ecr4_*``,
+    ``ecfp_*``, ``mbfp_*``, ``mbit_*``); reads ``torch_port_contacts.npz``."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from eagle_mpc_tpu.config import specs
+    from eagle_mpc_tpu.ocp import problem as P
+    from eagle_mpc_tpu.solvers import fddp
+
+    host = lambda a: np.asarray(a)
+    load = lambda name, dt_ms: P.from_trajectory(specs.load_trajectory(
+        f"{ROBOT}/trajectories/{name}.yaml", yaml_dir=missions),
+        dt_ms=dt_ms, use_squash=True, integrator=RK4)
+    out = {}
+
+    # eagle_catch's contact nodes at the contact fixture's rough candidate
+    with np.load(os.path.join(FIXTURES, "torch_port_contacts.npz")) as z:
+        xr, ur, nodes = z["ecr_xs"], z["ecr_us"], z["ecr_nodes"]
+    spec, params = load("eagle_catch", 50)
+    f = jax.jit(lambda view, x, s: P.node_calc_diff(spec, view, params.glob,
+                                                    x, s))
+    got = [f(P.node_view(params.node, t), xr[t], ur[t]) for t in nodes]
+    out["ecr4_nodes"] = nodes
+    out.update({f"ecr4_cd_{n}": np.stack([host(getattr(g, n)) for g in got])
+                for n in P.NodeDerivatives._fields})
+    settings = fddp.SolverSettings(record_trace=True)
+
+    def forward_passes(key, spec, params, xs, us):
+        """``fddp._forward_pass`` for the 10 alphas at each (xs, us) of a
+        batch, infeasible, with ``fddp._compute_direction``'s gains and
+        gaps there (regularization 1e-9): ``<key>_*``."""
+        pj = P.as_device(params)
+        feas = np.zeros(xs.shape[0], bool)
+
+        def direction(xs1, us1):
+            reg = jnp.asarray(1e-9, xs1.dtype)
+            _, fs1, bp, _, _, _ = fddp._compute_direction(
+                spec, settings, pj, xs1, us1, jnp.asarray(False), reg, reg)
+            return bp.k, bp.K, fs1
+        kff, Kfb, fs = (host(a) for a in jax.jit(jax.vmap(direction))(xs, us))
+
+        def fp(xs1, us1, k1, K1, fs1, f1):
+            bp = fddp.BackwardPassData(k=k1, K=K1, Qu=k1, Quuk=k1, Vx=fs1,
+                                       Vxx=None, ok=None)
+            return jax.vmap(lambda a: fddp._forward_pass(
+                spec, pj, xs1, us1, bp, fs1, a, f1, True,
+                th_diverge=settings.th_diverge))(jnp.asarray(settings.alphas))
+        r = jax.jit(jax.vmap(fp))(xs, us, kff, Kfb, fs, feas)
+        res = {f"{key}_{n}": host(a) for n, a in
+               zip(("xs_try", "us_try", "cost_try", "diverged"), r)}
+        res.update({f"{key}_xs": xs, f"{key}_us": us, f"{key}_k": kff,
+                    f"{key}_K": Kfb, f"{key}_fs": fs, f"{key}_feasible": feas})
+        return res
+
+    # eagle_catch on a slippery surface (every cone's mu TIGHT_MU) at the
+    # contact fixture's solution, where the cone's barrier is active along
+    # the rollouts (at the rough candidate every alpha diverges)
+    with np.load(os.path.join(FIXTURES, "torch_port_contacts.npz")) as z:
+        xsol, usol = z["ec_xs"], z["ec_us"]
+    traj = specs.load_trajectory(f"{ROBOT}/trajectories/eagle_catch.yaml",
+                                 yaml_dir=missions)
+    traj = dataclasses.replace(traj, stages=tuple(
+        dataclasses.replace(st, costs=tuple(
+            dataclasses.replace(c, mu=TIGHT_MU) if c.n_surf is not None
+            else c for c in st.costs))
+        for st in traj.stages))
+    spec, params = P.from_trajectory(traj, dt_ms=50, use_squash=True,
+                                     integrator=RK4)
+    out.update(forward_passes("ecfp", spec, params, xsol[None], usol[None]))
+
+    # monkey_bar at dt 100: 3 iterations, then forward passes with the
+    # solver's own directions (random gains blow these stiff RK4 rollouts
+    # up at every alpha). The start is default_init with every candidate
+    # state's base turned by RK4_TURN about its y axis: the hanging base
+    # is turned by pi from the state references, where the rotation log's
+    # branch, and so the sign of Lu, Lx and Lxu, follows the round-off
+    # sign of the quaternion's w at the RK4 stage points
+    spec, params = load("monkey_bar", 100)
+    xs0, us0 = fddp.default_init(spec, params)
+    turn = jnp.zeros(spec.state.ndx).at[4].set(RK4_TURN)
+    xs0 = jax.vmap(lambda x: spec.state.integrate(x, turn))(xs0)
+    r = jax.jit(lambda p: fddp.solve_fddp(spec, settings, p, xs0, us0, 3,
+                                          1e-9))(params)
+    out.update({f"mbit_{n}": host(getattr(r, n)) for n in OFFLINE_NAMES})
+    out.update({f"mbit_trace_{n}": host(a) for n, a in
+                zip(fddp.IterTrace._fields, r.trace)})
+    out.update(forward_passes("mbfp", spec, params,
+                              np.stack([host(xs0), host(r.xs)]),
+                              np.stack([host(us0), host(r.us)])))
     return out
 
 
