@@ -511,11 +511,14 @@ def tick(ctrl, sim, t_ms, xb, xs, us):
 
     from eagle_mpc_tpu_torch.ocp import problem as P
     from eagle_mpc_tpu_torch.solvers import sbfddp
+    from eagle_mpc_tpu_torch.utils import spans
 
     B = xb.shape[0]
-    params = ctrl.update_problem(
-        torch.full((B,), t_ms, device=xb.device, dtype=xb.dtype),
-        P.expand_params(ctrl.params0, B)._replace(x0=xb))
+    spans.tick()
+    with spans.span("mpc.update"):
+        params = ctrl.update_problem(
+            torch.full((B,), t_ms, device=xb.device, dtype=xb.dtype),
+            P.expand_params(ctrl.params0, B)._replace(x0=xb))
     r = sbfddp.solve_fixed(ctrl.spec, params, xs, us, depth=ctrl.iters,
                            settings=ctrl.solver_settings(), n_alphas=10,
                            polish="while_fixed", polish_maxiter=1)

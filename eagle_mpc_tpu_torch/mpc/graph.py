@@ -26,6 +26,10 @@ replayed with no Python in the loop.
 Kernel launches inside a graph do not pass through the wrappers' Python
 counters; ``CapturedStep.launches`` holds the launches each kernel's
 wrapper made while the step was captured, which every replay repeats.
+Likewise, with ``utils.spans`` on at the capture, the spans and counters
+inside the tick are captured (``spans.capture``); the replays of such a
+graph, and every replay while the spans are on, go through
+``spans.replay``.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 
 from ..ocp import problem as P
 from ..ops import node_cuda, riccati_cuda, rollout_cuda
+from ..utils import spans
 
 KERNEL_COUNTERS = {"node_linearization": node_cuda,
                    "riccati_backward": riccati_cuda,
@@ -71,9 +76,10 @@ class CapturedStep:
             a.copy_(s)
         before = {n: m.LAUNCHES for n, m in KERNEL_COUNTERS.items()}
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            with _sync_error():
-                self.outputs = fn()
+        with spans.capture() as self.traced:
+            with torch.cuda.graph(self.graph):
+                with _sync_error():
+                    self.outputs = fn()
         self.launches = {n: m.LAUNCHES - before[n]
                          for n, m in KERNEL_COUNTERS.items()}
 
@@ -82,6 +88,8 @@ class CapturedStep:
         tensors every time)."""
         if self.graph is None:
             self.outputs = self.fn()
+        elif spans.on() or self.traced.instrumented:
+            spans.replay(self.graph, self.traced)
         else:
             self.graph.replay()
         return self.outputs
@@ -148,11 +156,13 @@ def serving_tick(ctrl, sim, settings, period_ms: float, buf: TickBuffers,
     while-loop solve, neither of which a graph can capture), the plant
     stepped with the first squashed control; the results written back (x,
     xs, us, t + ``period_ms``). ``settings``: the solve's
-    ``SbFddpSettings``."""
+    ``SbFddpSettings``. With ``utils.spans`` on, a call begins a tick."""
     params0 = P.expand_params(ctrl.params0, buf.x.shape[0])
 
     def tick():
-        params = ctrl.update_problem(buf.t, params0._replace(x0=buf.x))
+        spans.tick()
+        with spans.span("mpc.update"):
+            params = ctrl.update_problem(buf.t, params0._replace(x0=buf.x))
         return _solve_and_step(ctrl, sim, settings, period_ms, params, buf,
                                fixed=fixed, sync_free=sync_free)
     return tick
@@ -165,8 +175,13 @@ def capture_split(ctrl, sim, settings, period_ms: float, buf: TickBuffers):
     writes back as :func:`serving_tick` does)."""
     params0 = P.expand_params(ctrl.params0, buf.x.shape[0])
     device = buf.x.device
-    update = CapturedStep(
-        lambda: ctrl.update_problem(buf.t, params0._replace(x0=buf.x)), device)
+
+    def update_problem():
+        spans.tick()
+        with spans.span("mpc.update"):
+            return ctrl.update_problem(buf.t, params0._replace(x0=buf.x))
+
+    update = CapturedStep(update_problem, device)
     update.replay()      # the solve's warm-up and capture read its outputs
     solve = CapturedStep(
         lambda: _solve_and_step(ctrl, sim, settings, period_ms,

@@ -20,6 +20,7 @@ import torch
 from ..ocp import problem as P
 from ..sim.plant import AerialSimulator
 from ..solvers import sbfddp
+from ..utils import spans
 from . import base
 
 
@@ -50,8 +51,10 @@ def run_closed_loop(controller: base.MpcAbstract, simulator: AerialSimulator,
     xs, us = xs_warm, us_warm
     states, controls, iters, costs = [x], [], [], []
     for i in range(n_steps):
+        spans.tick()
         t_ms = torch.full((B,), i * dt_sim_ms, dtype=dtype, device=device)
-        params = controller.update_problem(t_ms, params0._replace(x0=x))
+        with spans.span("mpc.update"):
+            params = controller.update_problem(t_ms, params0._replace(x0=x))
         res = controller.solve(params, xs, us, maxiter=maxiter,
                                settings=settings, fixed=fixed)
         u = res.us_squash[:, 0]

@@ -36,6 +36,7 @@ from ..config import specs as cspecs
 from ..dynamics import lie, rbd
 from ..dynamics.model import RobotModel
 from ..dynamics.state import State
+from ..utils import spans
 from . import actuation as act
 from . import costs as C
 
@@ -465,6 +466,7 @@ def node_calc_diff(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x, s):
         Lxu=H[..., :ndx, ndx:], Luu=H[..., ndx:, ndx:])
 
 
+@spans.spanned("ocp.terminal")
 def terminal_calc_diff(spec: ProblemSpec, view: NodeView, glob: GlobalParams, x):
     """(cost, Lx, Lxx) of terminal nodes, batched like node_calc_diff."""
     st = spec.state

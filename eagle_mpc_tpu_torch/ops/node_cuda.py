@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..ocp import problem as P
+from ..utils import spans
 from . import _cuda
 
 #: kernel launches since the last reset (the plain path does not count),
@@ -30,6 +31,7 @@ def calc_diff_running_plain(spec: P.ProblemSpec, params: P.ProblemParams,
     return P.map_params(lambda a: a.reshape((B, T) + a.shape[1:]), d)
 
 
+@spans.spanned("k1")
 def calc_diff_running(spec: P.ProblemSpec, params: P.ProblemParams,
                       xs, us) -> P.NodeDerivatives:
     """Derivatives of the running nodes: xs (B, T+1, nx), us (B, T, nu),

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import spans
 from . import _cuda
 from .smallmat import CholFactor
 
@@ -64,6 +65,7 @@ def backward_plain(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, VxT, VxxT, xreg, ureg,
     return tuple(torch.stack(o[::-1], dim=1) for o in zip(*outs))
 
 
+@spans.spanned("k3")
 def backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, VxT, VxxT, xreg, ureg,
              feasible):
     """Same signature and result as :func:`backward_plain`."""

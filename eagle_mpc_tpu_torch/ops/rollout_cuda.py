@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..ocp import problem as P
+from ..utils import spans
 from . import _cuda
 
 #: kernel launches since the last reset (the plain path does not count),
@@ -53,6 +54,7 @@ def rollout_plain(spec: P.ProblemSpec, params: P.ProblemParams, xs, us, k, K,
             torch.stack(cs, dim=2), x)
 
 
+@spans.spanned("k2")
 def rollout(spec: P.ProblemSpec, params: P.ProblemParams, xs, us, k, K, fs,
             alphas, keep, box: bool = False):
     """Same signature and result as :func:`rollout_plain`."""

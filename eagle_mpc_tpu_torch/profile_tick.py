@@ -19,17 +19,22 @@ under the profiler, per tick. ``serving``: the served tick of
 ``serving_bench`` (the flagship, B=1, float32, t0=3500 ms), 10 replays of
 its CUDA graph and then 10 eager ticks on the solve's default route, each
 from the bench's start after one untimed tick: the tick time unprofiled,
-then the same 10 under the profiler. The solver's named functions are wrapped in
-``torch.profiler.record_function`` for the profiled window only. Prints
-the card's name and power limit, the span table (ms per call under the
-profiler, calls per tick or per solver iteration), the three kernels'
-device time per launch, and the device busy share: the profiler's self
-device time over the profiled wall time. The wrapping lives in this
-process alone; the main path has no option for it. Run from the root of
-a checkout.
+then the same 10 under the profiler (the replays from a second capture of
+the tick, made with the spans on), and the host's launch of the first
+capture's replays (``graph.launch``: a graph captured with the spans off,
+since event nodes make the launch take the graph's device time). The span
+table and the counters come from the program's own spans
+(``utils.spans``, with its detail spans), switched on for the profiled
+window only; tracing is off everywhere else, so the unprofiled times are
+the untraced program's. Prints the card's name and power limit, the span
+table (host and device ms per call, calls per tick or per solver
+iteration; spans replayed by a CUDA graph have device times only), each
+counter pair's rows that did work over the rows launched (backward
+passes, solver iterations), the three kernels' device time per launch,
+and the device busy share: the profiler's self device time over the
+profiled wall time. Run from the root of a checkout.
 """
 
-import functools
 import os
 import subprocess
 import sys
@@ -37,71 +42,6 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TICKS = 3
-
-
-def _spans(ctrl_cls):
-    """(owner, attribute, span name) of each function the profile wraps."""
-    from .ocp import problem as P
-    from .ops import node_cuda, riccati_cuda, rollout_cuda
-    from .sim import AerialSimulator
-    from .solvers import fddp
-
-    return [
-        (ctrl_cls, "update_problem", "update_problem"),
-        (fddp, "_fixed_iteration", "fixed_iteration"),
-        (fddp, "solve_while_fixed_body", "polish_while_fixed"),
-        (P, "terminal_calc_diff", "terminal_calc_diff"),
-        (fddp, "_gaps", "gaps"),
-        (fddp, "_backward_pass", "backward_pass"),
-        (fddp, "_forward_pass_multi", "forward_pass_multi"),
-        (fddp, "_expected_improvement", "expected_improvement"),
-        (node_cuda, "calc_diff_running", "K1 wrapper"),
-        (riccati_cuda, "backward", "K3 wrapper"),
-        (rollout_cuda, "rollout", "K2 wrapper"),
-        (AerialSimulator, "step", "sim_step"),
-    ]
-
-
-def _offline_spans():
-    """(owner, attribute, span name) of each function the offline profile
-    wraps."""
-    from .ocp import problem as P
-    from .ops import node_cuda, riccati_cuda, rollout_cuda
-    from .solvers import fddp
-
-    return [
-        (fddp, "_while_iteration", "while_iteration"),
-        (fddp, "_compute_direction", "compute_direction"),
-        (P, "terminal_calc_diff", "terminal_calc_diff"),
-        (fddp, "_gaps", "gaps"),
-        (fddp, "_backward_pass", "backward_pass"),
-        (fddp, "_line_search", "line_search"),
-        (fddp, "_forward_pass_multi", "forward_pass_multi"),
-        (fddp, "_expected_improvement", "expected_improvement"),
-        (P, "total_cost", "total_cost"),
-        (node_cuda, "calc_diff_running", "K1 wrapper"),
-        (riccati_cuda, "backward", "K3 wrapper"),
-        (rollout_cuda, "rollout", "K2 wrapper"),
-    ]
-
-
-def _closed_loop_spans(ctrl_cls):
-    """(owner, attribute, span name) of each function the closed-loop
-    profile wraps: the offline ones, the update and the plant."""
-    from .sim import AerialSimulator
-
-    return [(ctrl_cls, "update_problem", "update_problem")] + _offline_spans() + [
-        (AerialSimulator, "step", "sim_step")]
-
-
-def _wrap(fn, name):
-    import torch
-
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        with torch.profiler.record_function(name):
-            return fn(*args, **kwargs)
-    return wrapped
 
 
 def device_us(evt):
@@ -152,7 +92,7 @@ def profile(device, batch, path="carrot"):
             state = tick(state)
 
     print(f"{path} tick f32 B={B}: {tick_ms:.3f} ms unprofiled", flush=True)
-    _profile_and_report(device, _spans(type(ctrl)), run, TICKS, "tick")
+    _profile_and_report(device, run, TICKS, "tick")
 
 
 def profile_offline(device, contacts=False):
@@ -185,7 +125,7 @@ def profile_offline(device, contacts=False):
           f"{solve_ms:.3f} ms unprofiled, "
           f"{iters} iterations, {solve_ms / iters:.3f} ms per iteration",
           flush=True)
-    _profile_and_report(device, _offline_spans(), solve, iters, "iteration")
+    _profile_and_report(device, solve, iters, "iteration")
 
 
 def profile_closed_loop(device, ticks=10):
@@ -210,8 +150,7 @@ def profile_closed_loop(device, ticks=10):
     tick_ms = (time.perf_counter() - t0) / ticks * 1e3
     print(f"closed loop f32 B=1 (while route): {tick_ms:.3f} ms per tick "
           f"unprofiled ({ticks} ticks)", flush=True)
-    _profile_and_report(device, _closed_loop_spans(type(ctrl)),
-                        lambda: run(TICKS), TICKS, "tick")
+    _profile_and_report(device, lambda: run(TICKS), TICKS, "tick")
 
 
 def profile_serving(device, ticks=10):
@@ -222,19 +161,21 @@ def profile_serving(device, ticks=10):
 
     from . import serving_bench as sb
     from .mpc import graph as G
-    from .solvers import fddp
+    from .utils import spans
 
     w = sb.workload(device=device)
     buf = w.start.clone()
-    step = G.CapturedStep(G.serving_tick(w.ctrl, w.sim, w.settings,
-                                         sb.DT_PLANT, buf), device, state=buf)
+    tick = G.serving_tick(w.ctrl, w.sim, w.settings, sb.DT_PLANT, buf)
+    step = G.CapturedStep(tick, device, state=buf)
+    spans.enable(detail=True)
+    traced = G.CapturedStep(tick, device, state=buf)
+    spans.disable()
     eager = G.serving_tick(w.ctrl, w.sim, w.settings, sb.DT_PLANT, buf,
                            sync_free=False)
-    spans = _closed_loop_spans(type(w.ctrl)) + [
-        (fddp, "_fixed_iteration", "fixed_iteration")]
-    for label, fn, sp in (("graph replay", step.replay, []),
-                          ("eager tick (default route)", eager, spans)):
-        run = lambda: [fn() for _ in range(ticks)]
+    for label, fn, profiled in (
+            ("graph replay", step.replay, traced.replay),
+            ("eager tick (default route)", eager, eager)):
+        run = lambda f=fn: [f() for _ in range(ticks)]
         sb.reset(buf, w.start)
         fn()
         torch.cuda.synchronize()
@@ -244,26 +185,78 @@ def profile_serving(device, ticks=10):
         tick_ms = (time.perf_counter() - t0) / ticks * 1e3
         print(f"serving {label} f32 B=1: {tick_ms:.3f} ms per tick "
               f"unprofiled ({ticks} ticks)", flush=True)
+        if fn == step.replay:
+            launch_ms = _launch_ms(run)
+            print(f"graph.launch: {launch_ms:.3f} ms host time per replay "
+                  f"(a graph captured with the spans off)", flush=True)
         sb.reset(buf, w.start)
-        fn()
+        profiled()
         torch.cuda.synchronize()
-        _profile_and_report(device, sp, run, ticks, "tick")
+        _profile_and_report(
+            device, lambda f=profiled: [f() for _ in range(ticks)], ticks,
+            "tick")
 
 
-def _profile_and_report(device, spans, run, n, unit):
-    """``run()`` under the profiler with ``spans`` wrapped; prints the span
-    table per ``unit`` (``n`` of them in the run), each kernel's device
-    time per launch and the device busy share."""
+def _launch_ms(run):
+    """Mean host ms of ``graph.launch`` per replay over ``run()``, replays
+    of a graph captured with the spans off, with the spans on (which then
+    record that span alone)."""
+    from .utils import spans
+
+    spans.enable()
+    try:
+        run()
+        launch = [s for s in spans.take().spans if s.name == "graph.launch"]
+    finally:
+        spans.disable()
+    return (sum(s.host_end_ns - s.host_start_ns for s in launch) * 1e-6
+            / len(launch))
+
+
+def useful_shares(record):
+    """Rows of ``record``'s counters (``utils.spans.take()``): (rows that
+    did work, rows launched, their share in %) of each counter pair that
+    launched any."""
+    from .utils import spans
+
+    c = record.counters
+    return [(needed, c[needed], c[launched], 100 * c[needed] / c[launched])
+            for launched, needed in spans.COUNTERS if c[launched]]
+
+
+def span_table(record, n):
+    """Rows of the span table of ``record`` (``utils.spans.take()``) over
+    ``n`` units: (name, host ms per call or None, device ms per call or
+    None, calls per unit), the largest total time first."""
+    by_name = {}
+    for s in record.spans:
+        by_name.setdefault(s.name, []).append(s)
+    rows = []
+    for name, group in by_name.items():
+        host = [(s.host_end_ns - s.host_start_ns) * 1e-6 for s in group
+                if s.host_start_ns is not None]
+        dev = [s.device_ms for s in group if s.device_ms is not None]
+        mean = lambda v: sum(v) / len(v) if v else None
+        rows.append((name, mean(host), mean(dev), len(group) / n,
+                     max(sum(host), sum(dev))))
+    rows.sort(key=lambda r: -r[4])
+    return [r[:4] for r in rows]
+
+
+def _profile_and_report(device, run, n, unit):
+    """``run()`` under the profiler with the program's spans on (its
+    detail spans too); prints the span table per ``unit`` (``n`` of them
+    in the run), each kernel's device time per launch and the device busy
+    share."""
     import torch
-    from torch.autograd import DeviceType
 
-    originals = [getattr(owner, attr) for owner, attr, _ in spans]
-    for (owner, attr, name), fn in zip(spans, originals):
-        setattr(owner, attr, _wrap(fn, name))
+    from .utils import spans
+
     cuda = device.type == "cuda"
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
+    spans.enable(detail=True)
     try:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -271,21 +264,22 @@ def _profile_and_report(device, spans, run, n, unit):
             if cuda:
                 torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        record = spans.take()
     finally:
-        for (owner, attr, _), fn in zip(spans, originals):
-            setattr(owner, attr, fn)
+        spans.disable()
 
     events = prof.key_averages()
-    by_key = {e.key: e for e in events if e.device_type == DeviceType.CPU}
     print(f"{wall_ms / n:.3f} ms per {unit} under the profiler ({n} of them)",
           flush=True)
-    print(f"| Span (profiled) | ms per call | calls per {unit} |")
-    print("|---|---|---|")
-    rows = sorted((by_key[name] for _, _, name in spans if name in by_key),
-                  key=lambda e: -e.cpu_time_total)
-    for e in rows:
-        print(f"| `{e.key}` | {e.cpu_time_total / e.count / 1e3:.3f} | "
-              f"{e.count / n:.2f} |")
+    print(f"| Span (profiled) | host ms per call | device ms per call | "
+          f"calls per {unit} |")
+    print("|---|---|---|---|")
+    fmt = lambda v: "-" if v is None else f"{v:.3f}"
+    for name, host, dev, calls in span_table(record, n):
+        print(f"| `{name}` | {fmt(host)} | {fmt(dev)} | {calls:.2f} |")
+    for name, needed, launched, pct in useful_shares(record):
+        print(f"{name}: {needed} of {launched} rows launched did work, "
+              f"{pct:.2f} %")
     for kernel in ("node_kernel", "node_rk4_kernel", "riccati_kernel",
                    "rollout_kernel"):
         ks = [e for e in events if kernel in e.key and device_us(e) > 0]

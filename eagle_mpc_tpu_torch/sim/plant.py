@@ -13,6 +13,7 @@ from ..dynamics import rbd
 from ..dynamics.model import RobotModel
 from ..dynamics.state import State
 from ..ocp import actuation as act
+from ..utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +39,7 @@ class AerialSimulator:
         return rbd.fwd_dynamics(self.model, x[..., :nq], x[..., nq:],
                                 act.actuation_tau(self.tau_f, u))
 
+    @spans.spanned("sim.step")
     def step(self, x, u):
         """One RK4 step on the state manifold; x (..., nx), u (..., nu)."""
         st = self.state

@@ -36,6 +36,7 @@ import torch
 
 from ..ocp import problem as P
 from ..ops import riccati_cuda, rollout_cuda, smallmat
+from ..utils import spans
 
 
 def full_precision_matmul() -> None:
@@ -189,6 +190,7 @@ def _all_finite(a):
 # Direction: gaps and the Riccati recursion
 # ---------------------------------------------------------------------------
 
+@spans.spanned("solver.gaps")
 def _gaps(spec, params, xs, xnext, feasible):
     """fs[0] = x0 (-) xs0; fs[t+1] = f(x_t, u_t) (-) xs_{t+1}; zero where the
     candidate is feasible. Returns (B, T+1, ndx)."""
@@ -249,6 +251,7 @@ def _box_gains(us, s_lb, s_ub, n_iters: int):
     return gains
 
 
+@spans.spanned("solver.backward")
 def _backward_pass(spec, derivs, term, fs, xreg, ureg, feasible, box=None):
     """Regularized Riccati recursion over the batch: kernel K3, or with
     ``box = (us, s_lb, s_ub, qp_iters)`` the plain Box-DDP recursion."""
@@ -306,7 +309,7 @@ def escalation_bound(settings: SolverSettings, reg_start: float, dtype) -> int:
 
 def _compute_direction(spec, settings, params, xs, us, feasible, xreg, ureg,
                        box: bool = False, sync_free: bool = False,
-                       n_retries: Optional[int] = None):
+                       n_retries: Optional[int] = None, *, active=None):
     """Linearization and backward pass with the regularization escalation
     of the reference (a do-while): the first pass runs at the incoming
     regularization; then, while any element's pass failed with finite
@@ -316,8 +319,12 @@ def _compute_direction(spec, settings, params, xs, us, feasible, xreg, ureg,
     With ``settings.parallel_riccati`` a non-box pass is
     ``priccati.parallel_backward_pass``. With ``sync_free`` the escalation
     runs ``n_retries`` masked rounds (``escalation_bound``) instead of
-    testing on the host whether any element retries. Returns (cost, fs,
-    bp, xreg, ureg, failed)."""
+    testing on the host whether any element retries. ``active``: the
+    elements whose result the caller keeps (the passes they needed are
+    counted, see ``utils.spans``; default every element). Returns (cost,
+    fs, bp, xreg, ureg, failed)."""
+    if active is None and spans.on():
+        active = torch.ones_like(feasible)
     derivs, term, cost, fs, derivs_ok = _linearize(spec, params, xs, us,
                                                    feasible)
     info = _box_info(settings, params, us, box)
@@ -332,16 +339,19 @@ def _compute_direction(spec, settings, params, xs, us, feasible, xreg, ureg,
             return _backward_pass(spec, derivs, term, fs, xr, ur, feasible,
                                   info)
     bp = run_bp(xreg, ureg)
+    spans.count(spans.PASSES, active)
     f, hi = settings.reg_factor, settings.reg_max
     rounds = 0
-    while not sync_free or rounds < n_retries:
-        retry = ~bp.ok & derivs_ok & (xreg < hi)
-        if not sync_free and not bool(retry.any()):
-            break
-        xreg = torch.where(retry, torch.clamp(xreg * f, max=hi), xreg)
-        ureg = torch.where(retry, torch.clamp(ureg * f, max=hi), ureg)
-        bp = _select(retry, run_bp(xreg, ureg), bp)
-        rounds += 1
+    with spans.span("solver.escalation"):
+        while not sync_free or rounds < n_retries:
+            retry = ~bp.ok & derivs_ok & (xreg < hi)
+            if not sync_free and not bool(retry.any()):
+                break
+            xreg = torch.where(retry, torch.clamp(xreg * f, max=hi), xreg)
+            ureg = torch.where(retry, torch.clamp(ureg * f, max=hi), ureg)
+            bp = _select(retry, run_bp(xreg, ureg), bp)
+            spans.count(spans.PASSES, retry, active)
+            rounds += 1
     return cost, fs, bp, xreg, ureg, ~bp.ok
 
 
@@ -391,6 +401,7 @@ def _expected_improvement_terms(bp, fs, feasible):
             dq + torch.where(feasible, zero, gap_dq))
 
 
+@spans.spanned("solver.expected_improvement")
 def _expected_improvement(spec, bp, fs, xs, xs_try, dg, dq, feasible):
     """Per-candidate (d0, d1) (B, A); dv = -sum fs . Vxx . (xs_try (-) xs)
     when infeasible."""
@@ -423,6 +434,7 @@ def _accept(settings, ddp: bool, feasible, alphas, d0, d1, dV):
                        neg_ok)
 
 
+@spans.spanned("solver.line_search")
 def _line_search(spec, settings, params, xs, us, cost, bp, fs, feasible,
                  alphas, ddp: bool, box: bool):
     """Every rolled-out candidate under the accept rule. Returns (accepted
@@ -493,14 +505,15 @@ def _budget(maxiter, B: int, device):
 
 def _while_iteration(spec, settings, params, s: _Carry, ddp: bool, th_stop,
                      box: bool, phase_id: int, sync_free: bool = False,
-                     n_retries: Optional[int] = None) -> _Carry:
+                     n_retries: Optional[int] = None, *, active) -> _Carry:
     """One iteration of the reference's solve loop: a direction with the
     escalation retried inside, the line search, the step-length
-    regularization schedule and the stopping test."""
+    regularization schedule and the stopping test. ``active``: the
+    elements whose result the caller keeps."""
     alphas = _alphas(settings, settings.n_alphas, s.xs)
     cost, fs, bp, xreg, ureg, failed = _compute_direction(
         spec, settings, params, s.xs, s.us, s.feasible, s.xreg, s.ureg, box,
-        sync_free, n_retries)
+        sync_free, n_retries, active=active)
     gap_norm = fs.abs().amax(dim=(1, 2))
     acc, xs_t, us_t, cost_t = _line_search(
         spec, settings, params, s.xs, s.us, cost, bp, fs, s.feasible, alphas,
@@ -591,9 +604,11 @@ def solve_fddp_or_ddp(spec, settings: SolverSettings, params, xs_init, us_init,
         active = (s.it < budget) & ~s.done & ~s.failed
         if not free and not bool(active.any()):
             break
-        s = _select(active, _while_iteration(spec, settings, params, s, ddp,
-                                             th_stop, box, phase_id, free,
-                                             n_retries), s)
+        with spans.span("solver.iteration"):
+            spans.count(spans.ITERATIONS, active)
+            s = _select(active, _while_iteration(
+                spec, settings, params, s, ddp, th_stop, box, phase_id, free,
+                n_retries, active=active), s)
         i += 1
     return _result(s, spec, params, final_cost_fallback, free)
 
@@ -743,8 +758,11 @@ def solve_fixed(spec, settings: SolverSettings, params, xs, us, depth: int,
         active = ~s.done & ~s.failed & (i < budget)
         if not sync_free and not bool(active.any()):
             break
-        s = _select(active, _fixed_iteration(spec, settings, params, s, ddp,
-                                             th_stop, n_alphas, box), s)
+        with spans.span("solver.iteration"):
+            spans.count(spans.ITERATIONS, active)
+            spans.count(spans.PASSES, active)
+            s = _select(active, _fixed_iteration(
+                spec, settings, params, s, ddp, th_stop, n_alphas, box), s)
     return _result(s, spec, params, final_cost_fallback, sync_free)
 
 
@@ -766,8 +784,11 @@ def solve_while_fixed_body(spec, settings: SolverSettings, params, xs, us,
         active = (s.it < maxiter) & ~s.done & ~s.failed
         if not bool(active.any()):
             break
-        s = _select(active, _fixed_iteration(spec, settings, params, s, ddp,
-                                             th_stop, n_alphas, box), s)
+        with spans.span("solver.iteration"):
+            spans.count(spans.ITERATIONS, active)
+            spans.count(spans.PASSES, active)
+            s = _select(active, _fixed_iteration(
+                spec, settings, params, s, ddp, th_stop, n_alphas, box), s)
     return _result(s)
 
 
