@@ -41,7 +41,12 @@ its seconds):
    operations over the f32 rate (no single PyTorch call computes any of
    the three, so there is no library time); K3 also on a ragged batch (the
    first B-3 scenarios) and with an indefinite Quu on every 64th scenario
-   (equal per-scenario failures); K1 also at the path's states with
+   (equal per-scenario failures), and its escalating entry on four kinds
+   of scenario (as given, retrying, failing up to reg_max, non-finite
+   derivatives: ``riccati_escalation_cases``; passes, regularizations and
+   failures equal to its plain version's, f64 values under the gate, the
+   scenarios without a retry bit for bit the one-pass kernel's, in both
+   types); K1 also at the path's states with
    every quaternion renormalized and then with its norm moved to
    1 +- 1e-7;
 5. reference: for each controller the float64 tick and warm start at B=2
@@ -234,11 +239,14 @@ its seconds):
        the warm-up after the first call and over the capture; each kernel's
        wrapper must have launched while it was captured, and no plain node
        dynamics ran on the card; a ``torch.profiler`` trace of one replay
-       must hold each of the three kernels (their device names);
+       must hold each of the three kernels (their device names); K3's
+       launches in it are printed (one a direction);
     2. the same tick captured in float64, 3 replays in a row, against the
        same 3 ticks eager on the solve's default route (iterations and
        feasibility equal, states, candidates, controls and costs within
-       1e-12 of each one's largest entry) and against the JAX package's
+       1e-12 of each one's largest entry, and every field bit for bit, as
+       also 3 float32 replays against 3 float32 eager ticks: both routes
+       run the same launches) and against the JAX package's
        chained ``one_tick`` of tools/serving_bench.py
        (tests/fixtures/torch_port_serving.npz, ``flag_*``: iterations and
        feasibility equal, states and controls to rtol 1e-6 / atol 1e-8,
@@ -404,7 +412,8 @@ class SmokeFailure(Exception):
 def ptxas_summary(log):
     """Registers, stack frame and spills of each kernel entry from the
     build log (nvcc -Xptxas -v), one line per kernel, type and path (K1 and
-    K2 have a free-flight and a contact instantiation)."""
+    K2 have a free-flight and a contact instantiation, K3 a one-pass and an
+    escalating one)."""
     import re
 
     out, name = [], None
@@ -414,7 +423,9 @@ def ptxas_summary(log):
         if m:
             flags = re.findall(r"Lb([01])E", m[3])
             path = ""
-            if flags:
+            if m[1] == "riccati_kernel":
+                path = ", escalating" if flags == ["1"] else ", one pass"
+            elif flags:
                 path = ", contact" if flags[0] == "1" else ", free"
             if len(flags) > 1 and flags[1] == "1" or m[1] == "node_rk4_kernel":
                 path += ", rk4"
@@ -716,6 +727,79 @@ def riccati_cases(bargs, n_ragged, every):
     return out
 
 
+def riccati_escalation_cases(bargs, reg_factor=10.0, reg_max=1e9):
+    """K3's escalating entry (``riccati_cuda.backward_escalating``) on four
+    kinds of scenario, kind i % 4 for scenario i, from backward's arguments
+    ``bargs`` (their terminal value taken as the terminal cost's gradient
+    and Hessian, the last node's gap repeated as the terminal gap):
+    0 as given; 1 Luu shifted by -(1 + 2 max diag Quu) I, Quu the last
+    node's at the given regularization, so the pass fails and passes again
+    after some retries; 2 Luu shifted by -1e15 I, which fails up to
+    reg_max; 3 a NaN in Lx and its derivatives marked non-finite, which
+    fails without a retry. Checked here: the kernel and the plain version
+    (``backward_escalating_plain``) agree exactly on the passes, the final
+    regularizations and which scenarios are ok; each kind does what it is
+    made for; and the scenarios that did not retry equal the one-pass
+    kernel (``riccati_cuda.backward``) on the same terminal value bit for
+    bit, NaNs included. Returns {"max_abs", "max_rel" (over the ok
+    scenarios' outputs), "passes" (per scenario), "bitwise" (scenarios
+    compared bit for bit)}."""
+    import torch
+
+    from eagle_mpc_tpu_torch.ops import riccati_cuda
+    from eagle_mpc_tpu_torch.solvers import fddp
+
+    (Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, LxT, LxxT, xreg, ureg,
+     feasible) = bargs
+    B, dev = Lx.shape[0], Lx.device
+    kind = torch.arange(B, device=dev) % 4
+    eye = torch.eye(Luu.shape[-1], dtype=Luu.dtype, device=dev)
+    fu = Fu[:, -1]
+    quu = Luu[:, -1] + fu.mT @ LxxT @ fu
+    big = quu.diagonal(dim1=-2, dim2=-1).abs().amax(dim=-1)
+    shift = torch.where(kind == 1, 1.0 + 2.0 * big,
+                        torch.where(kind == 2, 1e15, 0.0))
+    Luu = Luu - shift[:, None, None, None] * eye
+    Lx = torch.where((kind == 3)[:, None, None], float("nan"), Lx)
+    derivs_ok = kind != 3
+    fs = torch.cat([fs, fs[:, -1:]], dim=1)
+    settings = fddp.SolverSettings(reg_factor=reg_factor, reg_max=reg_max)
+    bound = fddp.escalation_bound(settings, float(xreg.min()), Lx.dtype)
+    args = (Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, LxT, LxxT, xreg, ureg,
+            feasible, derivs_ok, reg_factor, reg_max, bound)
+    got = riccati_cuda.backward_escalating(*args)
+    want = riccati_cuda.backward_escalating_plain(*args)
+    for i, name in ((-1, "passes"), (-2, "ok"), (-3, "ureg"), (-4, "xreg")):
+        check(torch.equal(got[i], want[i]), f"riccati escalation: kernel and "
+              f"plain version disagree on {name}: {got[i].tolist()} against "
+              f"{want[i].tolist()}")
+    passes, ok = got[-1], got[-2]
+    check(bool((ok & (passes == 1))[kind == 0].all()),
+          "riccati escalation: a scenario as given retried or failed")
+    check(bool(((passes > 1) & ok)[kind == 1].any()), "riccati escalation: "
+          "no shifted scenario retried and passed again")
+    check(bool(((got[-4] == reg_max) & ~ok)[kind == 2].all()),
+          "riccati escalation: a scenario that fails everywhere did not "
+          "reach reg_max")
+    check(bool(((passes == 1) & ~ok)[kind == 3].all()), "riccati escalation:"
+          " a scenario with non-finite derivatives retried or passed")
+    errs = [_err(w[ok], g[ok]) for w, g in zip(want[:8], got[:8])]
+    # the scenarios that did not retry against the one-pass kernel
+    VxT, VxxT = riccati_cuda.terminal_value(LxT, LxxT, fs[:, -1], xreg,
+                                            feasible)
+    one = riccati_cuda.backward(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs[:, :-1],
+                                VxT, VxxT, xreg, ureg, feasible) + (VxT, VxxT)
+    first = passes == 1
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}[Lx.dtype]
+    for n, (a, b) in enumerate(zip(got[:8], one)):
+        check(torch.equal(a[first].view(bits), b[first].view(bits)),
+              f"riccati escalation: output {n} of the scenarios that did not "
+              "retry differs from the one-pass kernel's")
+    return {"max_abs": max(e[0] for e in errs),
+            "max_rel": max(e[1] for e in errs),
+            "passes": passes.tolist(), "bitwise": int(first.sum())}
+
+
 def bound_ms(inputs, outputs, flops):
     """(least time in ms, what sets it): bytes moved (each input read once,
     each output written once) over the memory rate, or the operations over
@@ -834,6 +918,18 @@ def phase_parity(device, state, controller="carrot", plain_reps=TIMING_REPS):
                     f"plain {r['plain_ms']:.3f} ms (medians of {TIMING_REPS} "
                     f"and {plain_reps}), bound {r['bound_ms']:.4f} ms by "
                     f"{r['bound_by']}")
+            if name == "riccati_backward":
+                esc = riccati_escalation_cases(ins)
+                prec = "f64" if dtype == torch.float64 else "f32"
+                say(f"{controller} parity {prec} {name} escalation: passes "
+                    f"{sorted(set(esc['passes']))}, {esc['bitwise']} "
+                    f"scenarios without a retry equal the one-pass kernel "
+                    f"bit for bit, max abs {esc['max_abs']:.3e}, max rel "
+                    f"{esc['max_rel']:.3e}")
+                if dtype == torch.float64:
+                    check(esc["max_rel"] <= PARITY_RTOL, f"{name} escalation:"
+                          " kernel differs from its plain version "
+                          f"({esc['max_rel']:.3e})")
     return results
 
 
@@ -2523,6 +2619,8 @@ def phase_serving(device):
     traced = _trace_launches(step.replay)
     say(f"serving launches in the profiler trace of one replay: "
         f"{json.dumps(traced)}")
+    say(f"serving: K3 launches a served tick {traced['riccati_backward']} "
+        "(one a direction: the regularization escalation runs inside it)")
     for n in KERNEL_DEVICE_NAMES:
         check(traced[n] > 0, f"serving: {n} ({KERNEL_DEVICE_NAMES[n]}) not "
               "in the trace of a replayed tick")
@@ -2569,6 +2667,21 @@ def phase_serving(device):
         f"{got['iters'].tolist()}, feasible {got['feasible'].tolist()}; max "
         f"rel from the eager ticks {json.dumps(rel)}; max |diff| from JAX "
         f"{json.dumps(jax_d)}")
+    # both routes run the same launches (K3 escalates inside its own), so
+    # the replays equal the eager ticks bit for bit, in float32 too
+    step32, gbuf32 = captured(w)
+    ebuf32 = w.start.clone()
+    eager32 = G.serving_tick(w.ctrl, w.sim, w.settings, sb.DT_PLANT, ebuf32,
+                             sync_free=False)
+    rows32 = (_serving_rows(step32.replay, gbuf32, SERVE_F64_TICKS),
+              _serving_rows(eager32, ebuf32, SERVE_F64_TICKS))
+    for prec, (g, e) in (("f64", (got, ref)), ("f32", rows32)):
+        diff = [k for k in g if not torch.equal(g[k], e[k])]
+        say(f"serving {prec} B=1 {SERVE_F64_TICKS} replays against the eager "
+            f"ticks: {'bit for bit' if not diff else 'differ in ' + str(diff)}")
+        check(not diff, f"serving {prec}: replays differ from the eager ticks "
+              f"in {diff}")
+    del step32, gbuf32, ebuf32
 
     # 3. each kernel against its plain version at the replayed end state
     ctrl = w64.ctrl

@@ -13,6 +13,17 @@
 // negative pivot), which flows into k, K and Vx; the solver reads it as a
 // failed pass. Nothing clamps or guards the pivot.
 //
+// The escalating entry runs the reference's regularization do-while per
+// problem inside the launch: a pass is ok when k, K and Vx as written and
+// the terminal VxT are all finite (a shared flag that any thread storing a
+// non-finite entry clears, read after the sweep); a failed
+// pass with finite derivatives and xreg < reg_max sets xreg and ureg to
+// min(reg * reg_factor, reg_max), rebuilds VxxT = LxxT + xreg I and VxT =
+// LxT (+ VxxT fT where infeasible) in shared memory and sweeps again, the
+// operands streaming in again through the same prefetch. The first pass
+// reads the terminal value the host built, so a problem that does not
+// retry gets the plain entry's result bit for bit.
+//
 // What bounds it on an H100: latency. The bytes (every operand read once,
 // every output written once: 97 MB in f32 at B=512, T=29) would take
 // 0.029 ms at 3.35 TB/s; the work is 29 dependent nodes per problem, each
@@ -53,6 +64,9 @@
 //   nu up to RC_MAX_NU so that every loop is unrolled. The pivot's 1/sqrt
 //   is correctly rounded in both types, so the f64 parity gate checks the
 //   code f32 runs.
+// - The escalation is per group: each problem's warps stop as soon as its
+//   pass is ok, with no block-wide barrier (the groups of a block run
+//   different numbers of passes).
 // - The phases are __noinline__ (nvcc 12.8 miscompiled fully inlined K1
 //   code twice); they address shared memory through the one dynamic array
 //   rc_smem_raw and integer offsets, so their loads stay shared loads.
@@ -78,7 +92,7 @@
 struct RcLayout {
   int ndx, nu, nz, nv;
   int z, lzz, l, f, opl;                 // in an operand buffer
-  int op, vv, g, qv, q, lf, x, per;      // in a problem's region
+  int op, vv, g, qv, q, lf, x, flag, per;  // in a problem's region
 };
 
 __host__ __device__ inline RcLayout rc_layout(int ndx, int nu) {
@@ -96,7 +110,8 @@ __host__ __device__ inline RcLayout rc_layout(int ndx, int nu) {
   y.q = y.qv + y.nz;            // [[Qxx, .], [Qux, Quu]], (nz, nz)
   y.lf = y.q + y.nz * y.nz;     // Cholesky factor of Quu, (nu, nu)
   y.x = y.lf + nu * nu;         // [K | k], (nu, ndx + 1)
-  y.per = y.x + nu * y.nv + RC_PAD;
+  y.flag = y.x + nu * y.nv;     // the escalation's two ok flags, an int a slot
+  y.per = y.flag + 2 + RC_PAD;
   return y;
 }
 
@@ -125,6 +140,14 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// not NaN or infinite, from the exponent bits (no compiler flag changes it)
+__device__ __forceinline__ bool rc_finite(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) != 0x7f800000u;
+}
+__device__ __forceinline__ bool rc_finite(double v) {
+  return (__double_as_longlong(v) & 0x7ff0000000000000ll) != 0x7ff0000000000000ll;
 }
 
 // 1 / sqrt(x) from the correctly rounded square root and division, the
@@ -272,9 +295,10 @@ __device__ __noinline__ void rc_product_q(int ndx, int nu, int base, int buf, in
 // - [K | k] = Quu^-1 [Qux | Qu], a right-hand side per lane in registers,
 //   L from shared memory;
 // - Quuk = Quu k, Vx = Qx + K'Quuk - 2 K'Qu, and the stores of k, K, Qu
-//   and Quuk.
+//   and Quuk. Returns whether the k and K entries this lane stored are
+//   finite.
 template <class S, int NU>
-__device__ __noinline__ void rc_factor_solve(int ndx, int base, int lane, S rel_eps,
+__device__ __noinline__ bool rc_factor_solve(int ndx, int base, int lane, S rel_eps,
                                              S ureg, size_t bt, S* k_o, S* K_o, S* Qu_o,
                                              S* Quuk_o) {
   const RcLayout y = rc_layout(ndx, NU);
@@ -345,16 +369,22 @@ __device__ __noinline__ void rc_factor_solve(int ndx, int base, int lane, S rel_
 #pragma unroll
     for (int i = 0; i < NU; ++i) sm[y.x + i * nv + lane] = x[i];
   }
+  bool fin = true;
   if (lane < ndx) {
     sm[y.vv + lane * nv + ndx] = qv[lane] + a1 - S(2) * a2;
 #pragma unroll
-    for (int i = 0; i < NU; ++i) K_o[(bt * NU + i) * ndx + lane] = x[i];
+    for (int i = 0; i < NU; ++i) {
+      K_o[(bt * NU + i) * ndx + lane] = x[i];
+      fin = fin && rc_finite(x[i]);
+    }
   }
   if (row) {
     k_o[bt * NU + lane] = kp;
     Qu_o[bt * NU + lane] = qv[ndx + lane];
     Quuk_o[bt * NU + lane] = quuk;
+    fin = fin && rc_finite(kp);
   }
+  return fin;
 }
 
 // Vxx = sym(Qxx) - Qux'K + xreg I from the lower triangle of Qux'K, a
@@ -388,9 +418,10 @@ __device__ __noinline__ void rc_value(int ndx, int nu, int base, int tp, S xreg)
 }
 
 // the gap term with the new Vxx, and the value function's stores (Vxx as
-// one contiguous run, walked by `w`)
+// one contiguous run, walked by `w`); returns whether the Vx entry this
+// thread stored is finite
 template <class S>
-__device__ __noinline__ void rc_gap_store(int ndx, int nu, int base, int buf, int tp,
+__device__ __noinline__ bool rc_gap_store(int ndx, int nu, int base, int buf, int tp,
                                           RcWalk w, bool infeasible, size_t bt, S* Vx_o,
                                           S* Vxx_o) {
   const RcLayout y = rc_layout(ndx, nu);
@@ -398,6 +429,7 @@ __device__ __noinline__ void rc_gap_store(int ndx, int nu, int base, int buf, in
   const S* f = sm + buf + y.f;
   S* VV = sm + y.vv;
   const int nv = y.nv;
+  bool fin = true;
   if (tp < ndx) {
     S v = VV[tp * nv + ndx];
     if (infeasible) {
@@ -407,6 +439,7 @@ __device__ __noinline__ void rc_gap_store(int ndx, int nu, int base, int buf, in
       VV[tp * nv + ndx] = v;
     }
     Vx_o[bt * ndx + tp] = v;
+    fin = rc_finite(v);
   }
   S* out = Vxx_o + bt * ndx * ndx;
   int r = w.r0, c = w.c0;
@@ -417,19 +450,63 @@ __device__ __noinline__ void rc_gap_store(int ndx, int nu, int base, int buf, in
     r += w.dr;
     if (c >= ndx) c -= ndx, ++r;
   }
+  return fin;
 }
 
+// the escalation's inputs and outputs; passes_o null: no escalation
 template <class S>
+struct RcEscalation {
+  const S* LxT;                     // (B, ndx) terminal cost gradient
+  const S* LxxT;                    // (B, ndx, ndx) terminal cost Hessian
+  const S* fT;                      // (B, ndx) terminal gap
+  const unsigned char* derivs_ok;   // (B,) the node derivatives are finite
+  S factor, hi;                     // reg_factor, reg_max
+  int max_retries;
+  S* xreg_o;                        // (B,) the last pass's regularizations
+  S* ureg_o;
+  unsigned char* ok_o;              // (B,) the last pass is ok
+  int* passes_o;                    // (B,) passes run
+};
+
+// a retry's terminal value, row tp of it per thread: VxxT = LxxT + xreg I
+// and VxT = LxT (+ VxxT fT where infeasible), into [Vxx Vx] and over the
+// global VxT and VxxT
+template <class S>
+__device__ __noinline__ void rc_terminal(int ndx, int nu, int base, int tp, S xr,
+                                         bool infeasible, size_t b, const S* LxT,
+                                         const S* LxxT, const S* fT, S* VxT, S* VxxT) {
+  if (tp >= ndx) return;
+  const RcLayout y = rc_layout(ndx, nu);
+  S* VV = rc_smem<S>(base + y.vv) + tp * y.nv;
+  const S* lxx = LxxT + (b * ndx + tp) * ndx;
+  const S* f = fT + b * ndx;
+  S* vxx = VxxT + (b * ndx + tp) * ndx;
+  S acc = S(0);
+  for (int j = 0; j < ndx; ++j) {
+    const S v = lxx[j] + (j == tp ? xr : S(0));
+    VV[j] = v;
+    vxx[j] = v;
+    acc = acc + v * f[j];
+  }
+  const S v = LxT[b * ndx + tp] + (infeasible ? acc : S(0));
+  VV[ndx] = v;
+  VxT[b * ndx + tp] = v;
+}
+
+// ESC: the escalating entry (esc's pointers set); without it the kernel
+// is the one pass
+template <class S, bool ESC>
 __global__ void __launch_bounds__(RC_MAX_PPB * RC_NT)
 riccati_kernel(int B, int T, int ndx, int nu, S rel_eps,
                const S* __restrict__ Fx, const S* __restrict__ Fu,
                const S* __restrict__ Lx, const S* __restrict__ Lu,
                const S* __restrict__ Lxx, const S* __restrict__ Lxu,
                const S* __restrict__ Luu, const S* __restrict__ fs,
-               const S* __restrict__ VxT, const S* __restrict__ VxxT,
+               S* VxT, S* VxxT,
                const S* __restrict__ xreg, const S* __restrict__ ureg,
                const unsigned char* __restrict__ feasible,
-               S* k_o, S* K_o, S* Qu_o, S* Quuk_o, S* Vx_o, S* Vxx_o) {
+               S* k_o, S* K_o, S* Qu_o, S* Quuk_o, S* Vx_o, S* Vxx_o,
+               const RcEscalation<S> esc) {
   // warp w serves problem w % ppb, so the first warps of the block's
   // problems (which factor alone) sit on different schedulers
   const int ppb = blockDim.x / RC_NT, w = threadIdx.x / 32;
@@ -438,7 +515,7 @@ riccati_kernel(int B, int T, int ndx, int nu, S rel_eps,
   if (b >= B) return;   // a ragged last block: the group has no problem
   const RcLayout y = rc_layout(ndx, nu);
   const int base = p * y.per, bar = 1 + p;
-  const S xr = xreg[b], ur = ureg[b];
+  S xr = xreg[b], ur = ureg[b];
   const bool infeasible = feasible[b] == 0;
   const bool copier = tp >= 32;
   const int tq = copier ? tp - 32 : 0;
@@ -450,53 +527,92 @@ riccati_kernel(int B, int T, int ndx, int nu, S rel_eps,
     for (int c = tp; c <= ndx; c += RC_NT)
       cp_async_elem(VV + r * y.nv + c, c < ndx ? VxxT + ((size_t)b * ndx + r) * ndx + c
                                                : VxT + (size_t)b * ndx + r);
-  if (copier)
-    rc_prefetch<S>(ndx, nu, base + y.op + ((T - 1) & 1) * y.opl, (size_t)b * T + T - 1, tq,
-                   wx, wu, Fx, Fu, Lxx, Lxu, Luu, Lx, Lu, fs);
-  cp_async_commit();
+  // the escalation's ok flags, flag[(passes - 1) & 1] for a pass: set to 1
+  // by thread 0 before the pass's first barrier, cleared after it by any
+  // thread that stored a value of k, K or Vx that is not finite, or whose
+  // entry of VxT is not, read by all after the pass's last barrier
+  volatile int* flag = reinterpret_cast<volatile int*>(rc_smem<S>(base + y.flag));
+  int passes = 1;
+  if (ESC && tp == 0) flag[0] = 1;
+  for (;;) {
+    if (copier)
+      rc_prefetch<S>(ndx, nu, base + y.op + ((T - 1) & 1) * y.opl, (size_t)b * T + T - 1, tq,
+                     wx, wu, Fx, Fu, Lxx, Lxu, Luu, Lx, Lu, fs);
+    cp_async_commit();
 
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t bt = (size_t)b * T + t;
-    const int buf = y.op + (t & 1) * y.opl;
-    const int next = y.op + ((t - 1) & 1) * y.opl;
-    // node t's copies have landed, and every thread is done with node t+1,
-    // whose buffer node t-1's copies reuse
-    cp_async_wait_all();
-    rc_sync(bar);
-    rc_product_g<S>(ndx, nu, base, buf, tp);
-    rc_sync(bar);
-    rc_product_q<S>(ndx, nu, base, buf, tp);
-    rc_sync(bar);
-    if (tp < 32) {
-      switch (nu) {
-#define RC_FACTOR(N)                                                                 \
-  case N:                                                                            \
-    rc_factor_solve<S, N>(ndx, base, tp, rel_eps, ur, bt, k_o, K_o, Qu_o, Quuk_o); \
+    for (int t = T - 1; t >= 0; --t) {
+      const size_t bt = (size_t)b * T + t;
+      const int buf = y.op + (t & 1) * y.opl;
+      const int next = y.op + ((t - 1) & 1) * y.opl;
+      // node t's copies have landed, and every thread is done with node t+1,
+      // whose buffer node t-1's copies reuse
+      cp_async_wait_all();
+      rc_sync(bar);
+      rc_product_g<S>(ndx, nu, base, buf, tp);
+      rc_sync(bar);
+      rc_product_q<S>(ndx, nu, base, buf, tp);
+      rc_sync(bar);
+      if (tp < 32) {
+        bool fin = true;
+        switch (nu) {
+#define RC_FACTOR(N)                                                                  \
+  case N:                                                                             \
+    fin = rc_factor_solve<S, N>(ndx, base, tp, rel_eps, ur, bt, k_o, K_o, Qu_o, Quuk_o); \
     break;
-        RC_FACTOR(1) RC_FACTOR(2) RC_FACTOR(3) RC_FACTOR(4) RC_FACTOR(5) RC_FACTOR(6)
-        RC_FACTOR(7) RC_FACTOR(8) RC_FACTOR(9) RC_FACTOR(10) RC_FACTOR(11) RC_FACTOR(12)
+          RC_FACTOR(1) RC_FACTOR(2) RC_FACTOR(3) RC_FACTOR(4) RC_FACTOR(5) RC_FACTOR(6)
+          RC_FACTOR(7) RC_FACTOR(8) RC_FACTOR(9) RC_FACTOR(10) RC_FACTOR(11) RC_FACTOR(12)
 #undef RC_FACTOR
+        }
+        if (ESC && !fin) flag[(passes - 1) & 1] = 0;
+      } else {
+        if (t > 0)
+          rc_prefetch<S>(ndx, nu, base + next, bt - 1, tq, wx, wu, Fx, Fu, Lxx, Lxu, Luu, Lx,
+                         Lu, fs);
+        cp_async_commit();
       }
-    } else {
-      if (t > 0)
-        rc_prefetch<S>(ndx, nu, base + next, bt - 1, tq, wx, wu, Fx, Fu, Lxx, Lxu, Luu, Lx,
-                       Lu, fs);
-      cp_async_commit();
+      rc_sync(bar);
+      rc_value<S>(ndx, nu, base, tp, xr);
+      rc_sync(bar);
+      const bool fin = rc_gap_store<S>(ndx, nu, base, buf, tp, wv, infeasible, bt, Vx_o, Vxx_o);
+      if (ESC && !fin) flag[(passes - 1) & 1] = 0;
     }
+    if (!ESC) break;
+    const int lv = (passes - 1) & 1;
+    // VxT as this pass read it (this thread wrote it if the pass retried)
+    if (tp < ndx && !rc_finite(VxT[(size_t)b * ndx + tp])) flag[lv] = 0;
+    // every thread is past node 0 after this barrier, so the flag is
+    // final and the terminal and the operand buffers may be written again
     rc_sync(bar);
-    rc_value<S>(ndx, nu, base, tp, xr);
-    rc_sync(bar);
-    rc_gap_store<S>(ndx, nu, base, buf, tp, wv, infeasible, bt, Vx_o, Vxx_o);
+    const bool ok = flag[lv] != 0;
+    if (ok || !esc.derivs_ok[b] || !(xr < esc.hi) || passes > esc.max_retries) {
+      if (tp == 0) {
+        esc.xreg_o[b] = xr;
+        esc.ureg_o[b] = ur;
+        esc.ok_o[b] = ok ? 1 : 0;
+        esc.passes_o[b] = passes;
+      }
+      break;
+    }
+    // the next pass's flag: its readers of two passes ago are past this
+    // pass's barriers
+    if (tp == 0) flag[lv ^ 1] = 1;
+    // torch.clamp(reg * f, max=hi)
+    xr = xr * esc.factor;
+    xr = xr > esc.hi ? esc.hi : xr;
+    ur = ur * esc.factor;
+    ur = ur > esc.hi ? esc.hi : ur;
+    ++passes;
+    rc_terminal<S>(ndx, nu, base, tp, xr, infeasible, b, esc.LxT, esc.LxxT, esc.fT, VxT, VxxT);
   }
 }
 
 template <class S>
 static int launch_riccati(int B, int T, int ndx, int nu, S rel_eps, const S* Fx,
                           const S* Fu, const S* Lx, const S* Lu, const S* Lxx,
-                          const S* Lxu, const S* Luu, const S* fs, const S* VxT,
-                          const S* VxxT, const S* xreg, const S* ureg,
-                          const unsigned char* feasible, S* k, S* K, S* Qu,
-                          S* Quuk, S* Vx, S* Vxx, void* stream) {
+                          const S* Lxu, const S* Luu, const S* fs, S* VxT, S* VxxT,
+                          const S* xreg, const S* ureg, const unsigned char* feasible,
+                          S* k, S* K, S* Qu, S* Quuk, S* Vx, S* Vxx,
+                          const RcEscalation<S>& esc, void* stream) {
   // the solves take the ndx + 1 right-hand sides on one warp
   if (ndx < 1 || ndx + 1 > 32 || nu < 1 || nu > RC_MAX_NU)
     return (int)cudaErrorInvalidValue;
@@ -510,44 +626,51 @@ static int launch_riccati(int B, int T, int ndx, int nu, S rel_eps, const S* Fx,
   const int ppb = (int)(RC_MAX_PPB < optin / per ? RC_MAX_PPB : optin / per);
   if (ppb < 1) return (int)cudaErrorInvalidValue;
   const int smem = (int)(ppb * per);
+  const bool escalating = esc.passes_o != nullptr;
+  auto kernel = escalating ? riccati_kernel<S, true> : riccati_kernel<S, false>;
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(riccati_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   if (B > 0 && T > 0)
-    riccati_kernel<S><<<(B + ppb - 1) / ppb, ppb * RC_NT, smem, (cudaStream_t)stream>>>(
+    kernel<<<(B + ppb - 1) / ppb, ppb * RC_NT, smem, (cudaStream_t)stream>>>(
         B, T, ndx, nu, rel_eps, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, VxT, VxxT, xreg,
-        ureg, feasible, k, K, Qu, Quuk, Vx, Vxx);
+        ureg, feasible, k, K, Qu, Quuk, Vx, Vxx, esc);
   return (int)cudaGetLastError();
 }
 
+// the C entries: eagle_riccati_<prec> one pass, eagle_riccati_escalating_<prec>
+// the pass with the regularization escalation, which writes each retried
+// problem's last terminal value over VxT and VxxT
+#define RC_ENTRIES(S, P)                                                                 \
+  int eagle_riccati_##P(int B, int T, int ndx, int nu, S rel_eps, const S* Fx,         \
+                        const S* Fu, const S* Lx, const S* Lu, const S* Lxx,           \
+                        const S* Lxu, const S* Luu, const S* fs, const S* VxT,         \
+                        const S* VxxT, const S* xreg, const S* ureg,                   \
+                        const unsigned char* feasible, S* k, S* K, S* Qu, S* Quuk,     \
+                        S* Vx, S* Vxx, void* stream) {                                 \
+    const RcEscalation<S> none = {};                                                    \
+    return launch_riccati<S>(B, T, ndx, nu, rel_eps, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, \
+                             const_cast<S*>(VxT), const_cast<S*>(VxxT), xreg, ureg,     \
+                             feasible, k, K, Qu, Quuk, Vx, Vxx, none, stream);         \
+  }                                                                                     \
+  int eagle_riccati_escalating_##P(                                                     \
+      int B, int T, int ndx, int nu, S rel_eps, const S* Fx, const S* Fu, const S* Lx,  \
+      const S* Lu, const S* Lxx, const S* Lxu, const S* Luu, const S* fs, S* VxT,      \
+      S* VxxT, const S* xreg, const S* ureg, const unsigned char* feasible, S* k, S* K, \
+      S* Qu, S* Quuk, S* Vx, S* Vxx, const S* LxT, const S* LxxT, const S* fT,         \
+      const unsigned char* derivs_ok, S reg_factor, S reg_max, int max_retries,         \
+      S* xreg_o, S* ureg_o, unsigned char* ok_o, int* passes_o, void* stream) {         \
+    const RcEscalation<S> esc = {LxT,    LxxT,   fT,   derivs_ok, reg_factor, reg_max,  \
+                                 max_retries, xreg_o, ureg_o, ok_o, passes_o};          \
+    return launch_riccati<S>(B, T, ndx, nu, rel_eps, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, \
+                             VxT, VxxT, xreg, ureg, feasible, k, K, Qu, Quuk, Vx, Vxx,  \
+                             esc, stream);                                              \
+  }
+
 extern "C" {
 
-int eagle_riccati_f32(int B, int T, int ndx, int nu, float rel_eps,
-                      const float* Fx, const float* Fu, const float* Lx,
-                      const float* Lu, const float* Lxx, const float* Lxu,
-                      const float* Luu, const float* fs, const float* VxT,
-                      const float* VxxT, const float* xreg, const float* ureg,
-                      const unsigned char* feasible, float* k, float* K,
-                      float* Qu, float* Quuk, float* Vx, float* Vxx,
-                      void* stream) {
-  return launch_riccati<float>(B, T, ndx, nu, rel_eps, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu,
-                               fs, VxT, VxxT, xreg, ureg, feasible, k, K, Qu, Quuk,
-                               Vx, Vxx, stream);
-}
-
-int eagle_riccati_f64(int B, int T, int ndx, int nu, double rel_eps,
-                      const double* Fx, const double* Fu, const double* Lx,
-                      const double* Lu, const double* Lxx, const double* Lxu,
-                      const double* Luu, const double* fs, const double* VxT,
-                      const double* VxxT, const double* xreg, const double* ureg,
-                      const unsigned char* feasible, double* k, double* K,
-                      double* Qu, double* Quuk, double* Vx, double* Vxx,
-                      void* stream) {
-  return launch_riccati<double>(B, T, ndx, nu, rel_eps, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu,
-                                fs, VxT, VxxT, xreg, ureg, feasible, k, K, Qu, Quuk,
-                                Vx, Vxx, stream);
-}
+RC_ENTRIES(float, f32)
+RC_ENTRIES(double, f64)
 
 }  // extern "C"

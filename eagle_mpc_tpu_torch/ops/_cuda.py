@@ -175,6 +175,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, f"eagle_riccati_{prec}")
         fn.restype = _I
         fn.argtypes = [_I, _I, _I, _I, real] + [_P] * 13 + [_P] * 6 + [_P]
+        fn = getattr(lib, f"eagle_riccati_escalating_{prec}")
+        fn.restype = _I
+        fn.argtypes = ([_I, _I, _I, _I, real] + [_P] * 13 + [_P] * 6
+                       + [_P] * 4 + [real, real, _I] + [_P] * 4 + [_P])
         fn = getattr(lib, f"eagle_rollout_{prec}")
         fn.restype = _I
         fn.argtypes = [_P, _P, _I, _I, _I, _I] + [_P] * 10 + [_P] * 4 + [_P]

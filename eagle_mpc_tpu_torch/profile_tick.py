@@ -30,7 +30,9 @@ the untraced program's. Prints the card's name and power limit, the span
 table (host and device ms per call, calls per tick or per solver
 iteration; spans replayed by a CUDA graph have device times only), each
 counter pair's rows that did work over the rows launched (backward
-passes, solver iterations), the three kernels' device time per launch,
+passes, retries included, over K3's rows launched; solver iterations),
+the escalation's retries (``backward.row_retries``), the three kernels'
+device time per launch,
 and the device busy share: the profiler's self device time over the
 profiled wall time. Run from the root of a checkout.
 """
@@ -278,8 +280,10 @@ def _profile_and_report(device, run, n, unit):
     for name, host, dev, calls in span_table(record, n):
         print(f"| `{name}` | {fmt(host)} | {fmt(dev)} | {calls:.2f} |")
     for name, needed, launched, pct in useful_shares(record):
-        print(f"{name}: {needed} of {launched} rows launched did work, "
-              f"{pct:.2f} %")
+        print(f"{name}: {needed} over {launched} rows launched, {pct:.2f} %")
+    retries = record.counters[spans.RETRIES]
+    print(f"{spans.RETRIES}: {retries} retries of the escalation, "
+          f"{retries / n:.2f} per {unit}")
     for kernel in ("node_kernel", "node_rk4_kernel", "riccati_kernel",
                    "rollout_kernel"):
         ks = [e for e in events if kernel in e.key and device_us(e) > 0]

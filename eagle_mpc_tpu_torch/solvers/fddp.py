@@ -5,9 +5,11 @@ carries a leading scenario axis B and JAX's per-element control flow
 becomes per-element masks, each element frozen once it stops.
 
 - Direction: node linearization (kernel K1), gaps, Riccati backward pass
-  (kernel K3; the Box-DDP pass with its box QP stays plain, as in the
-  reference package; with ``parallel_riccati`` the while-loop solver's
-  non-box pass is the log-depth scan of ``solvers.priccati``).
+  (kernel K3, which also runs the while-loop solver's regularization
+  escalation per problem in the same launch; the Box-DDP pass with its box
+  QP stays plain, as in the reference package; with ``parallel_riccati``
+  the while-loop solver's non-box pass is the log-depth scan of
+  ``solvers.priccati``; these two escalate in rounds on the host).
 - Line search: the whole alpha ladder rolled out at once (kernel K2) and
   the first accepted alpha per element, which is the reference's
   sequential early-exit choice since alphas descend.
@@ -22,7 +24,8 @@ becomes per-element masks, each element frozen once it stops.
   ``while`` polish through ``solve_fddp_or_ddp``) replaces every host test
   of a loop by its static bound: the loops run their whole budget under
   the same masks, so the result is the eager route's bit for bit and no
-  tensor is read on the host (what a CUDA graph capture needs).
+  tensor is read on the host (what a CUDA graph capture needs). K3's
+  escalation reads nothing on the host on either route.
 """
 
 from __future__ import annotations
@@ -256,10 +259,8 @@ def _backward_pass(spec, derivs, term, fs, xreg, ureg, feasible, box=None):
     """Regularized Riccati recursion over the batch: kernel K3, or with
     ``box = (us, s_lb, s_ub, qp_iters)`` the plain Box-DDP recursion."""
     _, LxT, LxxT = term
-    eye = torch.eye(spec.state.ndx, dtype=LxT.dtype, device=LxT.device)
-    VxxT = LxxT + xreg[:, None, None] * eye
-    VxT = LxT + torch.where(feasible[:, None], torch.zeros_like(LxT),
-                            (VxxT @ fs[:, -1, :, None])[..., 0])
+    VxT, VxxT = riccati_cuda.terminal_value(LxT, LxxT, fs[:, -1], xreg,
+                                            feasible)
     args = (derivs.Fx, derivs.Fu, derivs.Lx, derivs.Lu, derivs.Lxx,
             derivs.Lxu, derivs.Luu, fs[:, :-1], VxT, VxxT, xreg, ureg,
             feasible)
@@ -272,6 +273,22 @@ def _backward_pass(spec, derivs, term, fs, xreg, ureg, feasible, box=None):
     Vxx = torch.cat([Vxx_r, VxxT[:, None]], dim=1)
     ok = _all_finite(k) & _all_finite(K) & _all_finite(Vx)
     return BackwardPassData(k, K, Qu, Quuk, Vx, Vxx, ok)
+
+
+@spans.spanned("solver.backward")
+def _escalated_backward_pass(settings, derivs, term, fs, xreg, ureg, feasible,
+                             derivs_ok, n_retries: int, sync_free: bool):
+    """K3 with the regularization escalation in the kernel, one launch:
+    (pass data, xreg, ureg, passes each row ran (B,) int32)."""
+    _, LxT, LxxT = term
+    (k, K, Qu, Quuk, Vx_r, Vxx_r, VxT, VxxT, xreg, ureg, ok,
+     passes) = riccati_cuda.backward_escalating(
+        derivs.Fx, derivs.Fu, derivs.Lx, derivs.Lu, derivs.Lxx, derivs.Lxu,
+        derivs.Luu, fs, LxT, LxxT, xreg, ureg, feasible, derivs_ok,
+        settings.reg_factor, settings.reg_max, n_retries, sync_free)
+    Vx = torch.cat([Vx_r, VxT[:, None]], dim=1)
+    Vxx = torch.cat([Vxx_r, VxxT[:, None]], dim=1)
+    return BackwardPassData(k, K, Qu, Quuk, Vx, Vxx, ok), xreg, ureg, passes
 
 
 def _linearize(spec, params, xs, us, feasible):
@@ -296,13 +313,18 @@ def escalation_bound(settings: SolverSettings, reg_start: float, dtype) -> int:
     """The most retries the escalation can take from a regularization of at
     least ``reg_start``: multiplications by reg_factor, clamped at reg_max,
     until reg_max is reached, counted in ``dtype``'s arithmetic (18 with the
-    defaults in float64, 19 in float32). The sync-free route runs this many
-    rounds."""
+    defaults in float64, 19 in float32), or until the product no longer
+    grows (a reg_factor of at most 1 or a regularization of 0: a further
+    round would rerun the same pass). K3 retries at most this many times;
+    the host's rounds on the sync-free route run this many."""
     real = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
     x, f, hi = real(reg_start), real(settings.reg_factor), real(settings.reg_max)
     n = 0
     while x < hi:
-        x = min(real(x * f), hi)
+        nx = min(real(x * f), hi)
+        if not nx > x:
+            break
+        x = nx
         n += 1
     return n
 
@@ -312,23 +334,51 @@ def _compute_direction(spec, settings, params, xs, us, feasible, xreg, ureg,
                        n_retries: Optional[int] = None, *, active=None):
     """Linearization and backward pass with the regularization escalation
     of the reference (a do-while): the first pass runs at the incoming
-    regularization; then, while any element's pass failed with finite
-    derivatives below reg_max, that element's regularization grows by
-    reg_factor and the pass runs again; an element whose pass is ok keeps
-    its result. Non-finite derivatives fail fast (no escalation).
-    With ``settings.parallel_riccati`` a non-box pass is
-    ``priccati.parallel_backward_pass``. With ``sync_free`` the escalation
-    runs ``n_retries`` masked rounds (``escalation_bound``) instead of
-    testing on the host whether any element retries. ``active``: the
-    elements whose result the caller keeps (the passes they needed are
-    counted, see ``utils.spans``; default every element). Returns (cost,
-    fs, bp, xreg, ureg, failed)."""
+    regularization; then, while an element's pass failed with finite
+    derivatives below reg_max, its regularization grows by reg_factor and
+    the pass runs again, at most ``n_retries`` times (``escalation_bound``;
+    by default from the smallest incoming xreg, read on the host).
+    Non-finite derivatives fail fast (no escalation). K3 runs the whole
+    escalation in one launch, on both routes. The Box-DDP pass and, with
+    ``settings.parallel_riccati``, ``priccati.parallel_backward_pass`` have
+    no kernel and escalate in rounds on the host (:func:`_host_escalation`).
+    ``active``: the elements whose result the caller keeps (the passes they
+    needed are counted, see ``utils.spans``; default every element).
+    Returns (cost, fs, bp, xreg, ureg, failed)."""
     if active is None and spans.on():
         active = torch.ones_like(feasible)
+    if n_retries is None:
+        n_retries = escalation_bound(
+            settings, min(settings.reg_min, float(xreg.min())), xreg.dtype)
     derivs, term, cost, fs, derivs_ok = _linearize(spec, params, xs, us,
                                                    feasible)
     info = _box_info(settings, params, us, box)
-    if settings.parallel_riccati and info is None:
+    with spans.span("solver.escalation"):
+        if info is None and not settings.parallel_riccati:
+            bp, xreg, ureg, passes = _escalated_backward_pass(
+                settings, derivs, term, fs, xreg, ureg, feasible, derivs_ok,
+                n_retries, sync_free)
+            if spans.on():
+                spans.count(spans.PASSES, active, values=passes)
+                spans.add(spans.RETRIES, active, values=passes - 1)
+        else:
+            bp, xreg, ureg = _host_escalation(
+                spec, settings, derivs, term, fs, xreg, ureg, feasible,
+                derivs_ok, info, sync_free, n_retries, active)
+    return cost, fs, bp, xreg, ureg, ~bp.ok
+
+
+def _host_escalation(spec, settings, derivs, term, fs, xreg, ureg, feasible,
+                     derivs_ok, box_info, sync_free: bool, n_retries: int,
+                     active):
+    """The escalation in rounds over the batch, for the passes without a
+    kernel (the Box-DDP pass; ``priccati.parallel_backward_pass`` with
+    ``settings.parallel_riccati``): after the first pass, each round reruns
+    the pass at the grown regularization of the elements that retry, and
+    those keep the new result. With ``sync_free`` all ``n_retries`` rounds
+    run, masked, instead of testing on the host whether any element
+    retries. Returns (bp, xreg, ureg)."""
+    if settings.parallel_riccati and box_info is None:
         from . import priccati
 
         def run_bp(xr, ur):
@@ -337,22 +387,22 @@ def _compute_direction(spec, settings, params, xs, us, feasible, xreg, ureg,
     else:
         def run_bp(xr, ur):
             return _backward_pass(spec, derivs, term, fs, xr, ur, feasible,
-                                  info)
+                                  box_info)
     bp = run_bp(xreg, ureg)
     spans.count(spans.PASSES, active)
     f, hi = settings.reg_factor, settings.reg_max
     rounds = 0
-    with spans.span("solver.escalation"):
-        while not sync_free or rounds < n_retries:
-            retry = ~bp.ok & derivs_ok & (xreg < hi)
-            if not sync_free and not bool(retry.any()):
-                break
-            xreg = torch.where(retry, torch.clamp(xreg * f, max=hi), xreg)
-            ureg = torch.where(retry, torch.clamp(ureg * f, max=hi), ureg)
-            bp = _select(retry, run_bp(xreg, ureg), bp)
-            spans.count(spans.PASSES, retry, active)
-            rounds += 1
-    return cost, fs, bp, xreg, ureg, ~bp.ok
+    while not sync_free or rounds < n_retries:
+        retry = ~bp.ok & derivs_ok & (xreg < hi)
+        if not sync_free and not bool(retry.any()):
+            break
+        xreg = torch.where(retry, torch.clamp(xreg * f, max=hi), xreg)
+        ureg = torch.where(retry, torch.clamp(ureg * f, max=hi), ureg)
+        bp = _select(retry, run_bp(xreg, ureg), bp)
+        spans.count(spans.PASSES, retry, active)
+        spans.add(spans.RETRIES, retry, active)
+        rounds += 1
+    return bp, xreg, ureg
 
 
 # ---------------------------------------------------------------------------
@@ -504,8 +554,8 @@ def _budget(maxiter, B: int, device):
 # ---------------------------------------------------------------------------
 
 def _while_iteration(spec, settings, params, s: _Carry, ddp: bool, th_stop,
-                     box: bool, phase_id: int, sync_free: bool = False,
-                     n_retries: Optional[int] = None, *, active) -> _Carry:
+                     box: bool, phase_id: int, sync_free: bool,
+                     n_retries: int, *, active) -> _Carry:
     """One iteration of the reference's solve loop: a direction with the
     escalation retried inside, the line search, the step-length
     regularization schedule and the stopping test. ``active``: the
@@ -597,8 +647,8 @@ def solve_fddp_or_ddp(spec, settings: SolverSettings, params, xs_init, us_init,
                         "(an int) or None")
     budget = _budget(maxiter, xs_init.shape[0], xs_init.device)
     free = sync_free is not None
-    n_retries = (escalation_bound(settings, min(reg_init, settings.reg_min),
-                                  xs_init.dtype) if free else None)
+    n_retries = escalation_bound(settings, min(reg_init, settings.reg_min),
+                                 xs_init.dtype)
     i = 0
     while not free or i < sync_free:
         active = (s.it < budget) & ~s.done & ~s.failed

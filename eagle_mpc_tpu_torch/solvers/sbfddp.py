@@ -181,9 +181,9 @@ def solve_fixed(spec: P.ProblemSpec, params: P.ProblemParams, xs, us,
     ``sync_free`` (polish ``while``, ``fixed`` or ``none``) reads nothing
     on the host: every loop runs its static bound under the same masks
     (the stages all ``depth`` iterations, the polish always, at most
-    ``depth`` iterations, each escalation at most
-    ``fddp.escalation_bound`` rounds), with a result equal to the eager
-    route's bit for bit. A CUDA graph can capture it."""
+    ``depth`` iterations; K3's escalation runs inside its launch on both
+    routes), with a result equal to the eager route's bit for bit. A CUDA
+    graph can capture it."""
     if polish not in ("while", "while_fixed", "fixed", "none"):
         raise ValueError(
             f"polish must be while|while_fixed|fixed|none, got {polish!r}")

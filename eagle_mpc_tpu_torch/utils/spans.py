@@ -24,8 +24,16 @@ annotation, on the trace's clock.
 A counter pair (:data:`COUNTERS`) counts launched rows, fixed on the host
 when the work is launched (at capture for a graph, added again at every
 replay), and the rows among them that did work, summed on the device per
-row without any read on the host, so a graph can capture it. The device
+row without any read on the host, so a graph can capture it. A single
+counter (:data:`SINGLE`) is summed on the device alone. The device
 tensors exist only once tracing is on.
+
+Backward passes: a K3 launch counts its B rows launched, and each active
+row's passes as needed, its first and every retry of the regularization
+escalation the kernel ran for it (so a launch can need more passes than it
+has rows); ``backward.row_retries`` counts those retries alone. The
+passes without a kernel count a launch per round of the host's escalation,
+each over the rows that retry.
 
 Spans of :data:`DETAIL` (the solver's inner phases and the three kernels'
 wrappers) are recorded only with ``enable(detail=True)``
@@ -53,6 +61,9 @@ NAMES = METRIC + DETAIL
 PASSES = ("backward.row_passes", "backward.row_passes_needed")
 ITERATIONS = ("solver.row_iterations", "solver.row_iterations_active")
 COUNTERS = (PASSES, ITERATIONS)
+#: single counters: the escalation's retries of the active rows
+RETRIES = "backward.row_retries"
+SINGLE = (RETRIES,)
 
 
 class Span(NamedTuple):
@@ -230,34 +241,57 @@ def tick() -> None:
     r.ticks += 1
 
 
-def count(pair, *masks: torch.Tensor) -> None:
+def _device_rows(name: str, m: torch.Tensor) -> torch.Tensor:
+    """The per-row device tensor of counter ``name`` (made on first use,
+    outside a capture)."""
+    r = _R
+    key = (name, m.device, m.shape[0])
+    rows = r.rows.get(key)
+    if rows is None:
+        if r.capturing():
+            raise RuntimeError(f"counter {name} first used inside a CUDA "
+                               "graph capture: run the step once before")
+        rows = r.rows[key] = torch.zeros(m.shape[0], dtype=torch.int64,
+                                         device=m.device)
+    return rows
+
+
+def _product(masks, values):
+    m = masks[0]
+    for k in masks[1:]:
+        m = m & k
+    return m if values is None else m * values
+
+
+def count(pair, *masks: torch.Tensor, values=None) -> None:
     """Count one launch over the rows of the (B,) boolean ``masks`` in the
     counter ``pair`` (:data:`PASSES` or :data:`ITERATIONS`): B rows
     launched (on the host), and the rows where every mask holds (summed
-    per row on the device)."""
+    per row on the device), each as ``values`` (B,) ints where given,
+    else as one."""
     r = _R
     if not r.on:
         return
     launched, needed = pair
-    m = masks[0]
-    for k in masks[1:]:
-        m = m & k
+    m = _product(masks, values)
     n = m.shape[0]
-    key = (needed, m.device, n)
-    rows = r.rows.get(key)
-    capturing = r.capturing()
-    if rows is None:
-        if capturing:
-            raise RuntimeError(f"counter {needed} first used inside a CUDA "
-                               "graph capture: run the step once before")
-        rows = r.rows[key] = torch.zeros(n, dtype=torch.int64, device=m.device)
-    rows.add_(m)
-    if capturing:
+    _device_rows(needed, m).add_(m)
+    if r.capturing():
         if r.capture is not None:
             r.capture.launched[launched] = r.capture.launched.get(launched,
                                                                   0) + n
     else:
         r.launched[launched] = r.launched.get(launched, 0) + n
+
+
+def add(name: str, *masks: torch.Tensor, values=None) -> None:
+    """Add to the single counter ``name`` (:data:`SINGLE`) the rows where
+    every (B,) mask holds, each as ``values`` (B,) ints where given, else
+    as one (summed per row on the device)."""
+    if not _R.on:
+        return
+    m = _product(masks, values)
+    _device_rows(name, m).add_(m)
 
 
 @contextlib.contextmanager
@@ -334,7 +368,7 @@ def take() -> Record:
     spans = r.done + [Span(n, p, t, a, b, e0.elapsed_time(e1))
                       for n, p, t, a, b, e0, e1 in r.pending]
     spans.sort(key=lambda s: s.tick)
-    counters = {name: 0 for pair in COUNTERS for name in pair}
+    counters = {name: 0 for name in sum(COUNTERS, ()) + SINGLE}
     counters.update(r.launched)
     for (name, _, _), rows in r.rows.items():
         counters[name] += int(rows.sum())

@@ -100,3 +100,80 @@ def test_riccati_cases_want_an_odd_count():
 
     with pytest.raises(chip_smoke.SmokeFailure):
         chip_smoke.riccati_cases(_inputs(), n_ragged=6, every=2)
+
+
+def _escalation_inputs(dtype):
+    """backward_escalating's arguments for four scenarios, one of each
+    kind: as given (no retry), Luu shifted by -6 I (retries, then passes),
+    by -1e15 I (fails up to reg_max), and a NaN in Lx with its derivatives
+    marked non-finite (fails, no retry); the last two infeasible. reg_max
+    1e3 keeps the ladder short."""
+    (Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, LxT, LxxT, xreg, ureg,
+     feasible) = (a[:4] for a in _inputs(dtype))
+    shift = torch.tensor([0.0, 6.0, 1e15, 0.0], dtype=dtype)
+    Luu = Luu - shift[:, None, None, None] * torch.eye(NU, dtype=dtype)
+    Lx = Lx.clone()
+    Lx[3, 1, 2] = float("nan")
+    derivs_ok = torch.tensor([True, True, True, False])
+    fs = torch.cat([fs, 0.01 * fs[:, :1]], dim=1)
+    return (Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, LxT, LxxT, xreg, ureg,
+            torch.tensor([True, False, True, False]), derivs_ok)
+
+
+@pytest.mark.parametrize("sync_free", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_escalation_equals_the_host_rounds(dtype, sync_free, monkeypatch):
+    """K3's escalating entry on the CPU (``backward_escalating_plain``)
+    equals the escalation in rounds on the host (``fddp._host_escalation``
+    over K3's one pass: masked rounds and ``_select``) bit for bit, NaNs
+    included: k, K, Qu, Quu k, Vx, Vxx with the terminal row, the final
+    regularizations, which rows failed and the passes each row ran (the
+    host's from its per-row counter)."""
+    from types import SimpleNamespace
+
+    from eagle_mpc_tpu_torch.solvers import fddp
+    from eagle_mpc_tpu_torch.utils import spans
+
+    args = _escalation_inputs(dtype)
+    (Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs, LxT, LxxT, xreg, ureg, feasible,
+     derivs_ok) = args
+    settings = fddp.SolverSettings(reg_max=1e3)
+    bound = fddp.escalation_bound(settings, 1e-2, dtype)
+    got = riccati_cuda.backward_escalating(*args, settings.reg_factor,
+                                           settings.reg_max, bound, sync_free)
+    monkeypatch.setattr(spans, "_R", spans._Recorder())
+    spans.enable()
+    derivs = SimpleNamespace(Fx=Fx, Fu=Fu, Lx=Lx, Lu=Lu, Lxx=Lxx, Lxu=Lxu,
+                             Luu=Luu)
+    bp, xr, ur = fddp._host_escalation(
+        None, settings, derivs, (None, LxT, LxxT), fs, xreg, ureg, feasible,
+        derivs_ok, None, sync_free, bound, torch.ones(4, dtype=torch.bool))
+    rows = {name: r.clone() for (name, _, _), r in spans._R.rows.items()}
+    spans.disable()
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}[dtype]
+    k, K, Qu, Quuk, Vx, Vxx, VxT, VxxT, xreg_g, ureg_g, ok, passes = got
+    want = (bp.k, bp.K, bp.Qu, bp.Quuk, bp.Vx, bp.Vxx, xr, ur)
+    have = (k, K, Qu, Quuk, torch.cat([Vx, VxT[:, None]], dim=1),
+            torch.cat([Vxx, VxxT[:, None]], dim=1), xreg_g, ureg_g)
+    for w, h in zip(want, have):
+        assert torch.equal(w.view(bits), h.view(bits))
+    assert torch.equal(ok, bp.ok)
+    assert torch.equal(passes.long(), rows["backward.row_passes_needed"])
+    assert torch.equal(passes.long() - 1, rows["backward.row_retries"])
+    # the four kinds did what they were made for
+    assert ok.tolist() == [True, True, False, False]
+    assert passes[0] == passes[3] == 1 and 1 < passes[1] < 1 + bound
+    assert passes[2] == 1 + bound and xreg_g[2] == settings.reg_max
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_riccati_escalation_cases_on_cpu(dtype):
+    """chip_smoke's escalation cases on CPU tensors, where the kernel's
+    entry takes its plain version: every kind present and the scenarios
+    without a retry equal to the one-pass entry bit for bit."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    out = chip_smoke.riccati_escalation_cases(_inputs(dtype))
+    assert out["max_abs"] == out["max_rel"] == 0.0
+    assert out["bitwise"] == sum(p == 1 for p in out["passes"]) >= 4

@@ -190,6 +190,37 @@ def test_kernels_match_plain_on_cuda():
 
 
 @pytest.mark.cuda
+def test_riccati_escalation_matches_plain_on_cuda():
+    """K3's escalating entry on the card, float64 and float32, at the carrot
+    fixture's tick state tiled to 12 (``chip_smoke.riccati_escalation_cases``:
+    three scenarios of each kind, as given, retrying, failing up to reg_max,
+    non-finite derivatives): passes, final regularizations and failures
+    exactly the plain version's, the f64 values within the K3 gate, and the
+    scenarios that did not retry bit for bit the one-pass kernel's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py checks the kernels "
+                    "on the card")
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    dev = torch.device("cuda")
+    fx = np.load(os.path.join(ROOT, "tests", "fixtures",
+                              chip_smoke.FIXTURES["carrot"]))
+    tile = tuple(torch.as_tensor(np.concatenate([np.asarray(a)] * 6))
+                 for a in (fx["x0"], fx["tick_xs_in"], fx["tick_us_in"]))
+    for dtype in (torch.float64, torch.float32):
+        ctrl = chip_smoke.flagship(dev, dtype, "carrot")[0]
+        params, xs, us, feas = chip_smoke.parity_inputs(
+            ctrl, (float(fx["tick_t"][0]),) + tile, dev, dtype)
+        bargs = chip_smoke.kernel_calls(ctrl, params, xs, us, feas,
+                                        reg=1e-2)["riccati_backward"][2]
+        out = chip_smoke.riccati_escalation_cases(bargs)
+        assert out["bitwise"] >= 6, dtype
+        if dtype == torch.float64:
+            assert out["max_rel"] < chip_smoke.PARITY_RTOL
+
+
+@pytest.mark.cuda
 def test_offline_kernels_match_plain_on_cuda():
     """The offline path on the card, float64: a short iris hover
     ``sbfddp.solve`` through the kernels against its plain run on the CPU

@@ -21,6 +21,7 @@ from eagle_mpc_tpu_torch.mpc import CarrotMpc
 from eagle_mpc_tpu_torch.mpc import graph as G
 from eagle_mpc_tpu_torch.mpc.carrot import CONTROL_REG
 from eagle_mpc_tpu_torch.ocp import problem as P
+from eagle_mpc_tpu_torch.ops import riccati_cuda
 from eagle_mpc_tpu_torch.sim import AerialSimulator
 from eagle_mpc_tpu_torch.solvers import fddp, sbfddp
 from eagle_mpc_tpu_torch.utils import spans
@@ -31,9 +32,14 @@ KNOTS = 5
 SETTINGS = sbfddp.SbFddpSettings(convergence_init=1e-3,
                                  solver=fddp.SolverSettings())
 # aten operations one eager tick of ``_tick(..., sync_free=False)``
-# dispatches after one tick has made the lazily cached constants, counted
-# on the tree before the spans existed (PyTorch 2.13)
-EAGER_TICK_OPS = 97936
+# dispatches after one tick has made the lazily cached constants, with
+# tracing off (PyTorch 2.13); the plain escalation of K3's direction
+# (``riccati_cuda.backward_escalating_plain``) counts its rows' passes
+EAGER_TICK_OPS = 97950
+# backward passes the eager route ran for ``_forced(iris, 1)``'s element
+# while the escalation's rounds ran on the host, one call a pass (counted
+# on the tree before K3 escalated in the kernel): 4 directions, 12 retries
+FORCED_EAGER_PASSES = 16
 
 
 @pytest.fixture(autouse=True)
@@ -167,7 +173,6 @@ def test_on_gives_the_same_outputs_and_the_documented_spans(iris):
         assert s.parent in TREE[s.name], (s.name, s.parent)
     a, b = sorted(by_tick)
     assert b == a + 1
-    n_retries = fddp.escalation_bound(SETTINGS.solver, SETTINGS.reg_init, F64)
     for group in by_tick.values():
         names = [s.name for s in group]
         assert names.count("mpc.update") == names.count("sim.step") == 1
@@ -175,7 +180,8 @@ def test_on_gives_the_same_outputs_and_the_documented_spans(iris):
         assert names.count("solver.iteration") == 4
         assert names.count("ocp.terminal") == 4
         assert names.count("solver.escalation") == 2
-        assert names.count("k3") == 2 + 2 * (1 + n_retries)
+        # one K3 launch a direction, the escalation inside it
+        assert names.count("k3") == 4
         for s in group:
             if s.parent is not None:
                 assert any(p.name == s.parent
@@ -196,17 +202,18 @@ def test_on_gives_the_same_outputs_and_the_documented_spans(iris):
 
 
 def test_sync_free_counts_the_passes_the_eager_route_runs(iris, monkeypatch):
-    """One element whose passes escalate: the eager route runs a backward
-    pass only where a row needs it (counted here on the host); the
-    sync-free route runs every round of the static bound and counts the
-    passes that did work, which are the same. Tracing is on without its
-    detail spans."""
+    """One element whose passes escalate: both routes make one backward
+    call a direction (K3 runs the escalation's retries inside the launch)
+    and count the same passes as needed, the passes the eager route ran
+    when the host ran the rounds (pinned), and the retries among them.
+    Tracing is on without its detail spans."""
     ctrl, _ = iris
     buf, params = _forced(iris, 1)
     calls = []
-    bp = fddp._backward_pass
-    monkeypatch.setattr(fddp, "_backward_pass",
-                        lambda *a, **k: calls.append(1) or bp(*a, **k))
+    for name in ("backward", "backward_escalating"):
+        monkeypatch.setattr(riccati_cuda, name,
+                            lambda *a, _f=getattr(riccati_cuda, name), **k:
+                            calls.append(1) or _f(*a, **k))
     spans.enable()
     counted = {}
     for free in (False, True):
@@ -214,17 +221,19 @@ def test_sync_free_counts_the_passes_the_eager_route_runs(iris, monkeypatch):
         ctrl.solve(params, buf.xs, buf.us, settings=SETTINGS, fixed=True,
                    sync_free=free)
         rec = spans.take()
-        counted[free] = (len(calls), rec.counters)
+        directions = sum(s.name == "solver.iteration" for s in rec.spans)
+        counted[free] = (len(calls), directions, rec.counters)
         # without detail, the metric spans alone
         assert {s.name for s in rec.spans} == {
             "solver.iteration", "ocp.terminal", "solver.escalation"}
-    eager_calls, eager = counted[False]
-    free_calls, free = counted[True]
-    assert eager_calls > 2 * ctrl.iters, "the escalation did not retry"
-    assert eager["backward.row_passes"] == eager_calls
-    assert eager["backward.row_passes_needed"] == eager_calls
-    assert free["backward.row_passes_needed"] == eager_calls
-    assert free["backward.row_passes"] == free_calls > eager_calls
+    eager_calls, eager_dirs, eager = counted[False]
+    free_calls, free_dirs, free = counted[True]
+    assert eager_calls == eager_dirs == free_calls == free_dirs == 4
+    for c in (eager, free):
+        assert c["backward.row_passes"] == eager_calls
+        assert c["backward.row_passes_needed"] == FORCED_EAGER_PASSES
+        assert (c["backward.row_retries"] == FORCED_EAGER_PASSES - eager_calls
+                > 0), "the escalation did not retry"
     assert (free["solver.row_iterations_active"]
             == eager["solver.row_iterations_active"]
             == eager["solver.row_iterations"])
@@ -323,3 +332,22 @@ def test_counters_sum_masks_per_row():
     assert c["backward.row_passes"] == 6
     assert c["backward.row_passes_needed"] == 3
     assert np.all(np.array(list(spans.take().counters.values())) == 0)
+
+
+def test_counters_sum_passes_and_retries_per_row():
+    """A launch that counts each row's passes, and the single counter of
+    the retries: summed per row on the device, B rows launched on the
+    host, nothing kept while tracing is off."""
+    active = torch.tensor([True, False, True])
+    passes = torch.tensor([1, 4, 3], dtype=torch.int32)
+    spans.add(spans.RETRIES, active, values=passes - 1)
+    spans.count(spans.PASSES, active, values=passes)
+    assert spans.take().counters[spans.RETRIES] == 0
+    spans.enable()
+    spans.count(spans.PASSES, active, values=passes)
+    spans.add(spans.RETRIES, active, values=passes - 1)
+    spans.add(spans.RETRIES, torch.tensor([False, True, True]), active)
+    c = spans.take().counters
+    assert c["backward.row_passes"] == 3
+    assert c["backward.row_passes_needed"] == 4
+    assert c[spans.RETRIES] == 2 + 1
